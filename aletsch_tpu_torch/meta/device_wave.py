@@ -3,17 +3,26 @@
 Counterpart of aletsch_tpu/meta/device_wave.py.  One region wave's groups
 are assembled as paused native GroupRuns (native/core.cpp); every group
 whose splice graph pauses for the greedy decomposition (pause kind 1) is
-exported into one [64, 64, 64] f64 batch, and one launch of the fused
-drain (ops/greedy_fused.py over ops/drain.py) drains them all.  The
-native consumer replays the device paths (trust mode) or re-checks them
-against its own drain (verify mode), so the bytes are the host's either
-way.
+exported into one [64, 64, 64] batch, in one of two modes:
 
-Not ported yet, and so refused rather than run on another path when asked
-for: the bridge top-K (pause kind 2), the support reduce (kind 3), the
-ladder (kind 4), step-mode greedy, and the measured 'auto' policy.  In
-'off' and 'auto' those stages stay on the native host path, as the JAX
-package leaves them on a CPU backend.  Device failures propagate.
+- fused (the default): each graph is exported once in f64, and one launch
+  of the drain (ops/greedy_fused.py over ops/drain.py) drains them all.
+  The native consumer replays the device paths (trust mode) or re-checks
+  them against its own drain (verify mode), so the bytes are the host's
+  either way;
+- step (ALETSCH_DEVICE_GREEDY=step): each extraction exports the graph's
+  current f32 adjacency, one launch of the single-source bottleneck DP
+  (ops/greedy_dp.py over ops/bottleneck.py) computes every exported
+  graph's table, and the native consumer backtraces one path from each.
+
+A graph the native export refuses (outside [minv, maxv], or a weight set
+whose f32 cast is not injective in step mode) is solved by the native host
+DP, as in the reference.  Not ported yet, and so refused rather than run
+on another path when asked for: the bridge top-K (pause kind 2), the
+support reduce (kind 3), the ladder (kind 4), and the measured 'auto'
+policy.  In 'off' and 'auto' those stages stay on the native host path,
+as the JAX package leaves them on a CPU backend.  Device failures
+propagate.
 """
 
 from __future__ import annotations
@@ -22,15 +31,18 @@ import os
 
 from aletsch_tpu.meta import native_core
 
+from ..ops import bottleneck as bottleneck_ops
 from ..ops import drain as drain_ops
+from ..ops.greedy_dp import DeviceGreedy
 from ..ops.greedy_fused import DeviceGreedyFused, device_f64_exact
 
 stats = {
     "host_graphs": 0,       # paused graphs solved by the native host DP
-    "device_steps": 0,      # device paths consumed in trust mode
+    "device_steps": 0,      # device paths consumed (fused: trust mode)
     "waves": 0,
 }
 
+_DEVICE = None
 _FUSED = None
 _FUSED_TRUST = None
 
@@ -65,33 +77,51 @@ def check_supported(cfg):
 
 
 def enabled(cfg, n_groups):
-    """Decide whether this wave's greedy drains run on the device.  'on' or
-    ALETSCH_DEVICE=1 engage it; 'off' and 'auto' stay on the host ('auto'
-    waits for the crossover model, ROADMAP Queue 1 item 5).  Same answer as
-    the JAX package's gate on a CPU backend, which the shared incubator
-    consults before it launches a wave asynchronously on the host."""
+    """Decide whether this wave's greedy decomposition runs on the device,
+    fused or in step mode.  'on' or ALETSCH_DEVICE=1 engage it; 'off' and
+    'auto' stay on the host ('auto' waits for the crossover model, ROADMAP
+    Queue 1 item 5).  Same answer as the JAX package's gate on a CPU
+    backend, which the shared incubator consults before it launches a wave
+    asynchronously on the host."""
     env = os.environ.get("ALETSCH_DEVICE")
     if env == "0":
         return False
     check_supported(cfg)
     if env != "1" and getattr(cfg, "device_greedy", "off") != "on":
         return False
-    if os.environ.get("ALETSCH_DEVICE_GREEDY") == "step":
-        raise NotImplementedError(
-            "ALETSCH_DEVICE_GREEDY=step: step-mode greedy is not ported to "
-            "aletsch_tpu_torch yet (ROADMAP Queue 1 item 9)")
     require_native()
     return True
 
 
+def step_mode():
+    """ALETSCH_DEVICE_GREEDY=step: one table launch per extraction instead
+    of the fused drain (read per wave, as the reference reads it)."""
+    return os.environ.get("ALETSCH_DEVICE_GREEDY") == "step"
+
+
 def require_native():
-    """Raise unless the native group assembler and its fused export are
-    loaded: the device drain runs inside it, between its pauses."""
-    if not (native_core.native_core_available()
-            and native_core.fused_available()):
-        raise RuntimeError(
-            "the device greedy drain needs the native core's fused export "
-            "(native/libabam.so, built by make -C native)")
+    """Raise unless the native group assembler and the export the chosen
+    greedy mode needs are loaded: the device DP runs inside it, between
+    its pauses."""
+    if step_mode():
+        ok = native_core.native_core_available() and all(
+            hasattr(native_core._load_lib(), f)
+            for f in ("core_greedy_export", "core_greedy_step"))
+        what = "step-mode greedy needs the native core's greedy export"
+    else:
+        ok = native_core.native_core_available() \
+            and native_core.fused_available()
+        what = "the device greedy drain needs the native core's fused export"
+    if not ok:
+        raise RuntimeError("%s (native/libabam.so, built by make -C native)"
+                           % what)
+
+
+def _get_device():
+    global _DEVICE
+    if _DEVICE is None:
+        _DEVICE = DeviceGreedy()
+    return _DEVICE
 
 
 def _get_fused_device():
@@ -105,6 +135,9 @@ def _get_fused_device():
 def device_stats():
     d = dict(stats)
     d["drain_launches"] = drain_ops.drain_cuda.launches
+    d["bottleneck_launches"] = bottleneck_ops.bottleneck_cuda.launches
+    if _DEVICE is not None:
+        d.update(_DEVICE.stats)
     if _FUSED is not None:
         d.update(_FUSED.stats)
         d["fused_trust"] = bool(_FUSED_TRUST)
@@ -115,7 +148,11 @@ def device_stats():
 
 def assemble_groups(asms, gvs, cfg):
     """Device-batched equivalent of the serial `asmb.resolve(gv)` loop."""
-    fdev = _get_fused_device()
+    step = step_mode()
+    if step:
+        dev, export = _get_device(), native_core.greedy_export
+    else:
+        dev, export = _get_fused_device(), native_core.greedy_export_fused
     minv = int(getattr(cfg, "device_min_vertices", 16))
     runs = []               # (asmb, gv, handle-or-None) in group order
     active = []
@@ -128,37 +165,42 @@ def assemble_groups(asms, gvs, cfg):
 
     while active:
         nxt = []
-        f_exp = []          # handles with exported rows
+        exp = []            # handles with exported rows
 
-        def flush_fused():
-            if not f_exp:
+        def flush():
+            if not exp:
                 return
-            paths, ws, npaths = fdev.solve(len(f_exp))
-            for i, g in enumerate(f_exp):
-                if _FUSED_TRUST:
-                    stats["device_steps"] += int(npaths[i])
-                if native_core.greedy_consume_fused(
-                        g, ws[i], paths[i], int(npaths[i]), fdev.maxv,
-                        _FUSED_TRUST):
-                    nxt.append(g)
-            del f_exp[:]
+            if step:
+                tables = dev.solve(len(exp))
+                for i, g in enumerate(exp):
+                    stats["device_steps"] += 1
+                    if native_core.greedy_step(g, tables[i]):
+                        nxt.append(g)
+            else:
+                paths, ws, npaths = dev.solve(len(exp))
+                for i, g in enumerate(exp):
+                    if _FUSED_TRUST:
+                        stats["device_steps"] += int(npaths[i])
+                    if native_core.greedy_consume_fused(
+                            g, ws[i], paths[i], int(npaths[i]), dev.maxv,
+                            _FUSED_TRUST):
+                        nxt.append(g)
+            del exp[:]
 
         for gh in active:
             if gh.pause_kind != 1:
                 raise RuntimeError("unexpected native pause kind %d: only "
-                                   "the greedy drain pauses in the port"
-                                   % gh.pause_kind)
-            v = native_core.greedy_export_fused(
-                gh, fdev.row(len(f_exp)), fdev.maxv)
-            if v <= 0:
+                                   "the greedy decomposition pauses in the "
+                                   "port" % gh.pause_kind)
+            if export(gh, dev.row(len(exp)), dev.maxv) <= 0:
                 stats["host_graphs"] += 1
                 if native_core.greedy_solve_host(gh):
                     nxt.append(gh)
                 continue
-            f_exp.append(gh)
-            if len(f_exp) == fdev.batch:
-                flush_fused()
-        flush_fused()
+            exp.append(gh)
+            if len(exp) == dev.batch:
+                flush()
+        flush()
         active = nxt
 
     # replay in group order (determinism), host path where ineligible

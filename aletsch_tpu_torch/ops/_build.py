@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 The sources under aletsch_tpu_torch/csrc/ have a plain C interface, so nvcc
-builds them in seconds without PyTorch's headers.  The library goes to
-<repo>/build/aletsch_tpu_torch/, named by a hash of the sources and flags,
-and is built on first use; a failed build raises.  Nothing here runs at
-import time: the CPU tests import every module on a machine without nvcc.
+builds them in seconds without PyTorch's headers.  Each source compiles to
+an object in its own nvcc process, all started together, and one more nvcc
+links them.  The library goes to <repo>/build/aletsch_tpu_torch/, named by
+a hash of all the sources and the flags, and is built on first use; a
+failed build raises.  Nothing here runs at import time: the CPU tests
+import every module on a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -19,10 +21,10 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("drain.cu",)
+SOURCES = ("drain.cu", "bottleneck.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "aletsch_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _LIB = None
 
@@ -45,6 +47,12 @@ def library_path():
                         % h.hexdigest()[:16])
 
 
+def _check(cmd, returncode, stderr):
+    if returncode != 0:
+        raise RuntimeError("nvcc failed (%d): %s\n%s" % (
+            returncode, " ".join(cmd), stderr[-4000:]))
+
+
 def build():
     """Compile the kernels if this source hash has no library yet; returns
     (path, seconds spent compiling, 0.0 when it was already built)."""
@@ -52,20 +60,26 @@ def build():
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                   os.path.join(CSRC, name)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        # wait for every compile before reporting the first failure
+        errs = [proc.communicate()[1] for _, _, proc in jobs]
+        for (cmd, _, proc), err in zip(jobs, errs):
+            _check(cmd, proc.returncode, err)
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *ARCH, "-shared", "-o", lib, *[o for _, o, _ in jobs]]
         res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed (%d): %s\n%s" % (
-                res.returncode, " ".join(cmd), res.stderr[-4000:]))
-        os.replace(tmp, out)        # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        _check(cmd, res.returncode, res.stderr)
+        os.replace(lib, out)        # atomic: concurrent builds agree
     return out, time.perf_counter() - t0
 
 
@@ -79,6 +93,10 @@ def load_library():
         for name in ("aletsch_drain_f64", "aletsch_drain_f32"):
             fn = getattr(lib, name)
             fn.argtypes = [p, p, p, p, i, i, i, p, p, p, p]
+            fn.restype = ctypes.c_int
+        for name in ("aletsch_bottleneck_neg", "aletsch_bottleneck_pos"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p, i, i, p, p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB

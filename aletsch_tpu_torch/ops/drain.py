@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from aletsch_tpu.ops.greedy_fused import NEG, POS
+from .constants import NEG, POS
 
 MAXV = 64       # the kernel keeps lane u's T[u] and T[u + 32] in registers
 
@@ -177,3 +177,27 @@ def fuzz_batch(rng, B, V, n_vertices=None):
                 cnt[j] += 1
         sink[b] = n - 1
     return W, P, sink, scal
+
+
+def fuzz_tables(rng, B, V, n_vertices=None):
+    """Random [B, V, V] f32 batch for the single-source bottleneck DP
+    (ops/bottleneck.py), in the NEG form the step-mode export writes: the
+    DAGs and weights of fuzz_batch cast to f32, with about 5 % of the edges
+    set to 0.0 and 5 % to -0.0 (the export lets both through), and in
+    about half of the graphs one or two vertices cut off from the source
+    (every in-edge dropped), so they and what only they reach are
+    unreachable.  Passed as it is, the batch is also a positive-form input:
+    NEG, 0.0 and -0.0 all read as absent there.  Same generator for the
+    CPU tests and the on-card check, for the reason fuzz_batch gives."""
+    W, _, sink, _ = fuzz_batch(rng, B, V, n_vertices)
+    W = W.astype(np.float32)
+    present = W > np.float32(NEG)
+    r = rng.random(W.shape)
+    W[present & (r < 0.05)] = np.float32(0.0)
+    W[present & (r >= 0.05) & (r < 0.10)] = np.float32(-0.0)
+    for b in range(B):
+        if rng.random() < 0.5:
+            k = int(rng.integers(1, 3))
+            cut = rng.choice(np.arange(1, sink[b] + 1), size=k, replace=False)
+            W[b][:, cut] = np.float32(NEG)
+    return W

@@ -7,8 +7,8 @@ every exported graph completely.  The drain runs in f64 on the port's
 device (ops/drain.py: the Hopper kernel on CUDA, its plain version on the
 CPU), so trust mode holds wherever that device's f64 is IEEE-exact.
 
-The default shapes and the NEG sentinel are shared with the JAX package,
-not copied.
+The default shapes and the NEG sentinel come from ops/constants.py, which
+the tests pin equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,10 +19,9 @@ import time
 import numpy as np
 import torch
 
-from aletsch_tpu.ops.greedy_fused import DEFAULT_B, DEFAULT_P, DEFAULT_V, NEG
-
 from ..device import device as port_device
 from . import drain as drain_ops
+from .constants import DRAIN_B, DRAIN_P, DRAIN_V, NEG
 
 
 def device_f64_exact(device=None):
@@ -59,7 +58,7 @@ class DeviceGreedyFused:
     """Pinned-shape fused drain solver: the native export fills rows, one
     solve() launch drains every exported graph completely."""
 
-    def __init__(self, batch=DEFAULT_B, maxv=DEFAULT_V, maxp=DEFAULT_P,
+    def __init__(self, batch=DRAIN_B, maxv=DRAIN_V, maxp=DRAIN_P,
                  device=None):
         self.batch = batch
         self.maxv = maxv

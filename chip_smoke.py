@@ -15,23 +15,40 @@ Phases, each of which exits non-zero on failure:
    the kernel's device time (CUDA events with the host's launch cost held
    outside the window, and the profiler's kernel time), the wrapper call's
    time and the plain version's call time;
+2b. bottleneck kernel vs plain: the single-source bottleneck kernel
+   (csrc/bottleneck.cu) in both forms against its plain PyTorch version
+   on the card and on the host CPU, bit for bit on int32 views with -0.0
+   turned into +0.0 (the consumer reads values only), on fuzz batches with
+   0.0 and -0.0 edges and unreachable vertices at V = 16, 33 and 64 and
+   the edge cases; its own path, bottleneck_from_source(version=1 and 2),
+   driven with every launch count reset; then its times, measured as the
+   drain's;
 3. main path: the production cohort (2000 genes x 10 paired-end samples,
    tools/refbuild/baseline.py) through python -m aletsch_tpu with the
    device off (the reference bytes) and through the port's CLI with the
    drain forced onto the card at --max_num_exons 8.  Both CLIs run as
    subprocesses, reference / port / port / reference, for comparable
    walls; then the port runs once more in this process under the
-   profiler, with the kernel's launch count reset just before it.  Every
+   profiler, with every launch count reset just before it.  Every
    output file of every port run must be byte-identical to the
    reference's, and the kernel must have carried the drain.  The
-   profiled run's device table is printed.
+   profiled run's device table is printed;
+3b. step path: the port's CLI once more with ALETSCH_DEVICE_GREEDY=step
+   (one bottleneck launch per extraction instead of the drain), as a
+   subprocess and then in this process under the profiler with the
+   counts reset; every output file byte-identical to the reference's, and
+   the bottleneck kernel must have carried every dispatch.
 
 The last lines are the card (nvidia-smi), one JSON line of the kernels
-and the JSON result line.  In the kernels line, "ms" is the kernel's
-device time for one live graph (most dispatches carry one) and
-"plain_ms" the plain version's call time on the card at that shape.
-This script imports only the port; the JAX package runs as a subprocess.
-jax is made unimportable first: the port never uses it.
+and the JSON result line.  In the kernels line, "launches" counts each
+kernel's launches on its own path (drain: phase 3; the bottleneck's NEG
+form: phase 3b; its positive form: bottleneck_from_source in phase 2b),
+"ms" is the kernel's device time at that path's shape (one live graph for
+the drain and the NEG form, as most dispatches carry one; 64 graphs for
+the positive form) and "plain_ms" the plain version's call time on the
+card at that shape.  This script imports only the port; the JAX package
+runs as a subprocess.  jax is made unimportable first: the port never
+uses it.
 """
 
 import json
@@ -66,6 +83,20 @@ def require(cond, msg):
 
 def log(msg):
     print("[chip_smoke] %s" % msg, flush=True)
+
+
+def _reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    from aletsch_tpu_torch.ops import bottleneck, drain
+    drain.drain_cuda.launches = 0
+    bottleneck.bottleneck_cuda.launches = 0
+
+
+def _launches():
+    """{kernel: launches since the last reset}."""
+    from aletsch_tpu_torch.ops import bottleneck, drain
+    return {"drain": drain.drain_cuda.launches,
+            "bottleneck": bottleneck.bottleneck_cuda.launches}
 
 
 # ------------------------------------------------------------ phase 1
@@ -193,15 +224,16 @@ def _profile_rows(prof):
     return rows
 
 
-def _drain_rows(rows):
-    n = sum(c for k, (c, _) in rows.items() if "drain_kernel" in k)
-    us = sum(t for k, (_, t) in rows.items() if "drain_kernel" in k)
+def _kernel_rows(rows, kernel="drain_kernel"):
+    """(count, summed device us) of the profiler rows of one kernel."""
+    n = sum(c for k, (c, _) in rows.items() if kernel in k)
+    us = sum(t for k, (_, t) in rows.items() if kernel in k)
     return n, us
 
 
-def _profiled_ms(fn):
-    """Mean device time of the drain kernel over REPS calls of fn(), as
-    the profiler (CUPTI) records it; None when it records no kernel."""
+def _profiled_ms(fn, kernel="drain_kernel"):
+    """Mean device time of the kernel over REPS calls of fn(), as the
+    profiler (CUPTI) records it; None when it records no kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -210,7 +242,7 @@ def _profiled_ms(fn):
         for _ in range(REPS):
             fn()
         torch.cuda.synchronize()
-    n, us = _drain_rows(_profile_rows(prof))
+    n, us = _kernel_rows(_profile_rows(prof), kernel)
     return us / n / 1000.0 if n else None
 
 
@@ -264,6 +296,128 @@ def kernel_vs_plain(dev):
     return err, times
 
 
+# ------------------------------------------------------------ phase 2b
+def _canon(T):
+    """int32 view with -0.0 turned into +0.0: min/max over {-0.0, +0.0}
+    may return either zero, and the native consumer reads values only."""
+    import numpy as np
+    return (np.asarray(T, dtype=np.float32) + np.float32(0.0)).view(np.int32)
+
+
+def _check_tables(tag, W, dev):
+    """Kernel == plain on the card == plain on the host CPU, in both
+    forms, bit for bit up to the sign of a zero, and
+    bottleneck_from_source(version=1 and 2) == the positive form.  Returns
+    the largest |kernel - plain| seen (0.0 when exact)."""
+    import numpy as np
+    import torch
+
+    from aletsch_tpu_torch.ops import bottleneck as BN
+    Wd = torch.from_numpy(W).to(dev)
+    err = 0.0
+    for neg_form in (True, False):
+        form = "NEG" if neg_form else "positive"
+        host = BN.bottleneck_torch(torch.from_numpy(W), neg_form).numpy()
+        k = BN.bottleneck_cuda(Wd, neg_form)
+        torch.cuda.synchronize()
+        p = BN.bottleneck_torch(Wd, neg_form)
+        torch.cuda.synchronize()
+        k, p = k.cpu().numpy(), p.cpu().numpy()
+        require(k.shape == p.shape == host.shape == W.shape[:2],
+                "%s %s form: shapes %s %s %s" % (tag, form, k.shape, p.shape,
+                                                 host.shape))
+        require(np.array_equal(_canon(k), _canon(p)),
+                "%s %s form: kernel vs plain on the card differ" % (tag, form))
+        require(np.array_equal(_canon(k), _canon(host)),
+                "%s %s form: kernel vs plain on the host CPU differ"
+                % (tag, form))
+        err = max(err, float(np.abs(k.astype(np.float64)
+                                    - p.astype(np.float64)).max(initial=0.0)))
+        if not neg_form:
+            for version in (1, 2):
+                T = BN.bottleneck_from_source(W, version=version, device=dev)
+                require(T.dtype == np.float32
+                        and np.array_equal(_canon(T), _canon(host)),
+                        "%s: bottleneck_from_source(version=%d) vs plain on "
+                        "the host CPU differ" % (tag, version))
+    return err
+
+
+def bottleneck_vs_plain(dev):
+    """Phase 2b.  Returns (max error, launches of the positive form on its
+    own path, {(form, nrows): times})."""
+    import numpy as np
+    import torch
+
+    from aletsch_tpu_torch.ops import bottleneck as BN
+    from aletsch_tpu_torch.ops.drain import fuzz_tables
+    rng = np.random.default_rng(77)
+    err, n_batches, zeros = 0.0, 0, [0, 0]
+    for V in (16, 33, 64):
+        for i in range(3):
+            W = fuzz_tables(rng, 64, V)
+            zeros[0] += int(((W == 0) & ~np.signbit(W)).sum())
+            zeros[1] += int(((W == 0) & np.signbit(W)).sum())
+            err = max(err, _check_tables("V=%d fuzz%d" % (V, i), W, dev))
+            n_batches += 1
+    require(zeros[0] > 0 and zeros[1] > 0, "no 0.0 / -0.0 edges drawn")
+    # edge cases: one row, an all-NEG row, the full batch
+    W = fuzz_tables(rng, 64, 64)
+    err = max(err, _check_tables("nrows=1", W[:1], dev))
+    Wn = W.copy()
+    Wn[5] = np.float32(BN.NEG)
+    err = max(err, _check_tables("all-NEG row", Wn, dev))
+    err = max(err, _check_tables("B=64", W, dev))
+    # nrows = 0: nothing to launch
+    n0 = BN.bottleneck_cuda.launches
+    out = BN.bottleneck_cuda(torch.from_numpy(W[:0]).to(dev), True)
+    require(BN.bottleneck_cuda.launches == n0, "nrows=0 launched a kernel")
+    require(tuple(out.shape) == (0, 64), "nrows=0 shape %s" % (out.shape,))
+    log("bottleneck kernel == plain on the card == plain on the host CPU, "
+        "both forms, bit for bit with signed zeros canonicalised, on %d "
+        "batches (%d 0.0 and %d -0.0 edges) and the edge cases "
+        "(max |diff| %g)" % (n_batches, zeros[0], zeros[1], err))
+
+    # the positive form's own path: bottleneck_from_source, counts reset
+    Wp = fuzz_tables(np.random.default_rng(8), 64, 64)
+    want = _canon(BN.bottleneck_torch(torch.from_numpy(Wp), False).numpy())
+    _reset_launches()
+    got = [BN.bottleneck_from_source(Wp, version=v, device=dev)
+           for v in (1, 2)]
+    n = _launches()
+    pos_launches = n["bottleneck"]
+    require(n == {"drain": 0, "bottleneck": 2},
+            "bottleneck_from_source launched %s" % n)
+    for v, T in zip((1, 2), got):
+        require(T.dtype == np.float32 and np.array_equal(_canon(T), want),
+                "bottleneck_from_source(version=%d) differs from the plain "
+                "version on the host CPU" % v)
+    log("bottleneck_from_source(version=1) == (version=2) == plain on the "
+        "host CPU, [64, 64, 64], %d launches" % pos_launches)
+
+    times = {}
+    Wd = torch.from_numpy(fuzz_tables(np.random.default_rng(3), 64,
+                                      64)).to(dev)
+    for neg_form in (True, False):
+        form = "neg" if neg_form else "pos"
+        for n in (1, 2, 64):
+            a = Wd[:n]
+            t = {"device": _device_ms(lambda: BN.bottleneck_cuda(a, neg_form)),
+                 "profiler": _profiled_ms(
+                     lambda: BN.bottleneck_cuda(a, neg_form),
+                     "bottleneck_kernel"),
+                 "call": _call_ms(lambda: BN.bottleneck_cuda(a, neg_form)),
+                 "plain": _call_ms(lambda: BN.bottleneck_torch(a, neg_form))}
+            times[form, n] = t
+            log("bottleneck %s form, V=64, nrows=%d: kernel device %.4f ms "
+                "(events, launch cost outside), profiler %s ms; wrapper "
+                "call %.4f ms; plain call %.4f ms (medians of %d)"
+                % (form, n, t["device"], "%.4f" % t["profiler"]
+                   if t["profiler"] else "not measured", t["call"],
+                   t["plain"], REPS))
+    return err, pos_launches, times
+
+
 # ------------------------------------------------------------ phase 3
 def _outputs(out):
     files = {"meta.gtf": os.path.join(out, "meta.gtf")}
@@ -299,7 +453,6 @@ def main_path(genes=GENES, samples=SAMPLES):
 
     from aletsch_tpu_torch import __main__ as port_main
     from aletsch_tpu_torch.meta import device_wave
-    from aletsch_tpu_torch.ops import drain as D
     env = dict(os.environ, PYTHONPATH=REPO)
     res = {}
     with tempfile.TemporaryDirectory(prefix="aletsch_chip_smoke_") as tmp:
@@ -342,18 +495,71 @@ def main_path(genes=GENES, samples=SAMPLES):
 
         out = os.path.join(tmp, "profiled")
         args = ["-i", lst, *_cli_args(out), *DEVICE_ARGS]
-        D.drain_cuda.launches = 0
+        _reset_launches()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             require(port_main.main(args) == 0, "port CLI failed")
             torch.cuda.synchronize()
         res["profiled_wall"] = time.perf_counter() - t0
-        res["launches"] = D.drain_cuda.launches
+        n = _launches()
+        require(n["bottleneck"] == 0, "the fused path launched the "
+                "bottleneck kernel %d times" % n["bottleneck"])
+        res["launches"] = n["drain"]
         got = _outputs(out)
         require(sorted(got) == sorted(ref) and all(
             got[n] == ref[n] for n in ref),
             "the profiled port run's outputs differ from the reference's")
+        res["stats"] = device_wave.device_stats()
+        res["rows"] = _profile_rows(prof)
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=12), flush=True)
+        res["step"] = step_path(tmp, lst, ref, env)
     res["walls"] = walls
+    return res
+
+
+def step_path(tmp, lst, ref, env):
+    """Phase 3b: the port's CLI in step mode, as a subprocess and then in
+    this process under the profiler with the counts reset."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aletsch_tpu_torch import __main__ as port_main
+    from aletsch_tpu_torch.meta import device_wave
+    res = {}
+    out = os.path.join(tmp, "step_subprocess")
+    res["wall"] = _subprocess_wall(
+        "aletsch_tpu_torch", lst, out, DEVICE_ARGS,
+        dict(env, ALETSCH_TORCH_DEVICE="cuda", ALETSCH_DEVICE_GREEDY="step"))
+    got = _outputs(out)
+    require(sorted(got) == sorted(ref) and all(
+        got[n] == ref[n] for n in ref),
+        "the step-mode port run's outputs differ from the reference's")
+    log("step mode subprocess wall %.2f s; every output byte-identical "
+        "(%d files)" % (res["wall"], len(ref)))
+
+    out = os.path.join(tmp, "step_profiled")
+    args = ["-i", lst, *_cli_args(out), *DEVICE_ARGS]
+    os.environ["ALETSCH_DEVICE_GREEDY"] = "step"
+    try:
+        for k in device_wave.stats:
+            device_wave.stats[k] = 0
+        _reset_launches()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            require(port_main.main(args) == 0, "step-mode port CLI failed")
+            torch.cuda.synchronize()
+        res["profiled_wall"] = time.perf_counter() - t0
+        n = _launches()
+    finally:
+        del os.environ["ALETSCH_DEVICE_GREEDY"]
+    require(n["drain"] == 0, "the step path launched the drain kernel %d "
+            "times" % n["drain"])
+    res["launches"] = n["bottleneck"]
+    got = _outputs(out)
+    require(sorted(got) == sorted(ref) and all(
+        got[f] == ref[f] for f in ref),
+        "the profiled step-mode run's outputs differ from the reference's")
     res["stats"] = device_wave.device_stats()
     res["rows"] = _profile_rows(prof)
     print(prof.key_averages().table(sort_by="self_device_time_total",
@@ -377,6 +583,7 @@ def main():
     try:
         smi, name = environment()
         err, times = kernel_vs_plain(dev)
+        bn_err, pos_launches, bn_times = bottleneck_vs_plain(dev)
         res = main_path()
         st, launches, rows = res["stats"], res["launches"], res["rows"]
         log("device stats: %s" % json.dumps(st, sort_keys=True))
@@ -388,7 +595,7 @@ def main():
         require(st["fused_agree"] == st["fused_total"] > 0,
                 "device paths disagree with the host drain (%d of %d)"
                 % (st["fused_agree"], st["fused_total"]))
-        n_prof, drain_us = _drain_rows(rows)
+        n_prof, drain_us = _kernel_rows(rows)
         busy_us = sum(t for _, t in rows.values())
         wall = res["profiled_wall"]
         if n_prof:
@@ -405,6 +612,24 @@ def main():
             "wrapper-call-to-kernel-end events %.2f ms (host launch cost "
             "included)" % (st["fused_device_time"], launches,
                            st["fused_graphs"], st["fused_launch_ms"]))
+        step = res["step"]
+        sst, step_launches = step["stats"], step["launches"]
+        log("step-mode device stats: %s" % json.dumps(sst, sort_keys=True))
+        require(sst["device_steps"] > 0, "step mode consumed no device row")
+        require(step_launches >= sst["dispatches"] > 0,
+                "bottleneck launches %d < dispatches %d"
+                % (step_launches, sst["dispatches"]))
+        n_bn, bn_us = _kernel_rows(step["rows"], "bottleneck_kernel")
+        busy_us = sum(t for _, t in step["rows"].values())
+        wall = step["profiled_wall"]
+        log("profiled step-mode run on %s: wall %.2f s; %d dispatches, %d "
+            "device rows, %d host graphs; bottleneck kernel device time %s "
+            "over %d kernels; all device work %.2f ms, device idle share "
+            "%.4f; solve() host clock %.3f s"
+            % (name, wall, sst["dispatches"], sst["device_steps"],
+               sst["host_graphs"], "%.2f ms" % (bn_us / 1000.0) if n_bn
+               else "not measured", n_bn, busy_us / 1000.0,
+               1.0 - busy_us / 1e6 / wall, sst["device_time"]))
     except SmokeFailure as e:
         print("chip_smoke: FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -417,7 +642,23 @@ def main():
         "launches": launches,
         "max_abs_err": err,
         "ms": times[1]["device"],
-        "plain_ms": times[1]["plain"]}]}))
+        "plain_ms": times[1]["plain"]}, {
+        "name": "bottleneck (NEG form)",
+        "route": "cuda",
+        "source": "aletsch_tpu_torch/csrc/bottleneck.cu",
+        "replaces": "aletsch_tpu/ops/pallas_kernels.py:112",
+        "launches": step_launches,
+        "max_abs_err": bn_err,
+        "ms": bn_times["neg", 1]["device"],
+        "plain_ms": bn_times["neg", 1]["plain"]}, {
+        "name": "bottleneck (positive form)",
+        "route": "cuda",
+        "source": "aletsch_tpu_torch/csrc/bottleneck.cu",
+        "replaces": "aletsch_tpu/ops/pallas_kernels.py:61",
+        "launches": pos_launches,
+        "max_abs_err": bn_err,
+        "ms": bn_times["pos", 64]["device"],
+        "plain_ms": bn_times["pos", 64]["plain"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

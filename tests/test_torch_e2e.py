@@ -1,7 +1,8 @@
 """The port's cohort CLI (python -m aletsch_tpu_torch) against the JAX
 package on the adversarial cohort of test_device_greedy_fused.py, with the
-drain forced onto the device (the plain PyTorch drain on the CPU): every
-output file byte-identical, the drain engaged, trust and verify mode, the
+greedy decomposition forced onto the device (the plain PyTorch versions on
+the CPU), fused and in step mode (ALETSCH_DEVICE_GREEDY=step): every
+output file byte-identical, the device engaged, trust and verify mode, the
 device gates, the refusals of what is not ported yet, and no jax import."""
 
 import os
@@ -14,6 +15,7 @@ from aletsch_tpu import __main__ as ref_main
 from aletsch_tpu.config import default_params
 from aletsch_tpu.meta import device_wave as ref_wave
 from aletsch_tpu.meta import native_core
+from aletsch_tpu.ops import greedy_dp as ref_greedy_dp
 from aletsch_tpu_torch import __main__ as port_main
 from aletsch_tpu_torch.meta import device_wave as port_wave
 
@@ -107,16 +109,52 @@ def test_port_verify_mode_parity(cohort, reference_off, tmp_path,
 
 
 @needs_native
+@pytest.mark.parametrize("pallas", [None, "1"])
+def test_step_mode_matches_reference(pallas, cohort, reference_off,
+                                     tmp_path, monkeypatch):
+    """ALETSCH_DEVICE_GREEDY=step: the port's bytes equal the reference's
+    host run and the reference's own step run (XLA scan, or TPU kernel #2
+    in interpret mode under ALETSCH_PALLAS_GREEDY=1, which the port
+    ignores), with the per-extraction tables engaged."""
+    monkeypatch.setenv("ALETSCH_DEVICE_GREEDY", "step")
+    if pallas is None:
+        monkeypatch.delenv("ALETSCH_PALLAS_GREEDY", raising=False)
+    else:
+        monkeypatch.setenv("ALETSCH_PALLAS_GREEDY", pallas)
+    # the reference builds its step solver once a process and caches its
+    # backend per V: start both afresh so this run's backend is used
+    monkeypatch.setattr(ref_wave, "_DEVICE", None)
+    monkeypatch.setattr(ref_greedy_dp, "_CACHE", {})
+    ref_steps0 = ref_wave.stats["device_steps"]
+    ref_step = _run(ref_main.main, cohort, tmp_path / "ref_step", "on")
+    assert ref_wave.stats["device_steps"] > ref_steps0
+    st0 = port_wave.device_stats()
+    port_step = _run(port_main.main, cohort, tmp_path / "port_step", "on")
+    assert port_step == reference_off
+    assert port_step == ref_step
+    st = port_wave.device_stats()
+    assert st["device_steps"] > st0["device_steps"]
+    assert st["dispatches"] > st0.get("dispatches", 0)
+    assert st["graphs"] - st0.get("graphs", 0) == \
+        st["device_steps"] - st0["device_steps"]
+    assert st.get("fused_graphs", 0) == st0.get("fused_graphs", 0)
+    assert st["bottleneck_launches"] == 0   # no kernel launch on the CPU
+
+
+@needs_native
+@pytest.mark.parametrize("greedy", [None, "step"])
 @pytest.mark.parametrize("env", [None, "0", "1"])
 @pytest.mark.parametrize("mode", ["off", "on", "auto"])
-def test_device_gates_agree(mode, env, monkeypatch):
+def test_device_gates_agree(mode, env, greedy, monkeypatch):
     """The shared incubator launches a wave asynchronously on the host
     when the JAX package's gate says no, and then never asks the port: the
-    two gates must agree for every greedy mode."""
-    if env is None:
-        monkeypatch.delenv("ALETSCH_DEVICE", raising=False)
-    else:
-        monkeypatch.setenv("ALETSCH_DEVICE", env)
+    two gates must agree for every greedy mode, fused and step."""
+    for var, val in (("ALETSCH_DEVICE", env),
+                     ("ALETSCH_DEVICE_GREEDY", greedy)):
+        if val is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, val)
     cfg = default_params()[0]
     cfg.device_greedy = mode
     cfg.device_min_groups = 0
@@ -133,14 +171,41 @@ def test_unported_device_stage_raises(flag, cohort, tmp_path):
                         flag, "on"])
 
 
-def test_step_mode_and_missing_native_core_raise(monkeypatch):
+@needs_native
+def test_step_mode_engages(monkeypatch):
     cfg = default_params()[0]
     cfg.device_greedy = "on"
     monkeypatch.setenv("ALETSCH_DEVICE_GREEDY", "step")
-    with pytest.raises(NotImplementedError, match="step"):
-        port_wave.enabled(cfg, 4)
-    monkeypatch.delenv("ALETSCH_DEVICE_GREEDY")
+    assert port_wave.step_mode()
+    assert port_wave.enabled(cfg, 4) is True
+    # step mode needs the step export only, not the fused one
     monkeypatch.setattr(native_core, "fused_available", lambda: False)
+    assert port_wave.enabled(cfg, 4) is True
+
+
+class _LibWithout:
+    """The native library with some entry points hidden."""
+
+    def __init__(self, lib, hidden):
+        self._lib, self._hidden = lib, hidden
+
+    def __getattr__(self, name):
+        if name in self._hidden:
+            raise AttributeError(name)
+        return getattr(self._lib, name)
+
+
+@pytest.mark.parametrize("greedy", [None, "step"])
+def test_missing_native_core_raises(greedy, monkeypatch):
+    cfg = default_params()[0]
+    cfg.device_greedy = "on"
+    if greedy is None:
+        monkeypatch.delenv("ALETSCH_DEVICE_GREEDY", raising=False)
+        monkeypatch.setattr(native_core, "fused_available", lambda: False)
+    else:
+        monkeypatch.setenv("ALETSCH_DEVICE_GREEDY", greedy)
+        lib = _LibWithout(native_core._load_lib(), ("core_greedy_step",))
+        monkeypatch.setattr(native_core, "_load_lib", lambda: lib)
     with pytest.raises(RuntimeError, match="native core"):
         port_wave.enabled(cfg, 4)
 
@@ -166,32 +231,42 @@ def test_help_matches_reference(capsys):
 
 
 @needs_native
-def test_cli_runs_with_jax_blocked(cohort, reference_off, tmp_path):
-    """python -m aletsch_tpu_torch with jax made unimportable: exit 0 and
-    the reference's bytes."""
+@pytest.mark.parametrize("greedy", [None, "step"])
+def test_cli_runs_with_jax_blocked(greedy, cohort, reference_off, tmp_path):
+    """python -m aletsch_tpu_torch with jax made unimportable, fused and
+    in step mode: exit 0 and the reference's bytes."""
     out = tmp_path / "nojax"
     (out / "gtf").mkdir(parents=True)
     code = ("import sys; sys.modules['jax'] = None; "
             "from aletsch_tpu_torch.__main__ import main; "
             "sys.exit(main(sys.argv[1:]))")
     env = dict(os.environ, ALETSCH_TORCH_DEVICE="cpu", PYTHONPATH=REPO)
+    env.pop("ALETSCH_DEVICE_GREEDY", None)
+    if greedy is not None:
+        env["ALETSCH_DEVICE_GREEDY"] = greedy
     res = subprocess.run(
         [sys.executable, "-c", code, "-i", cohort, "-o",
          str(out / "meta.gtf"), "-d", str(out / "gtf"), "--device_greedy",
-         "on", *FORCED], cwd=REPO, env=env, capture_output=True, text=True,
-        timeout=600)
+         "on", *FORCED, "--verbose", "1"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-2000:]
     assert (out / "meta.gtf").read_bytes() == reference_off["meta.gtf"]
+    device_line = [ln for ln in res.stderr.splitlines()
+                   if ln.startswith("[aletsch_tpu_torch] device:")][-1]
+    assert ("'dispatches'" in device_line) == (greedy == "step")
 
 
 def test_package_never_imports_jax():
+    """No source of the port imports jax, or a module of the JAX package's
+    ops/ (they import jax, and the port owns their counterparts)."""
     pkg = os.path.join(REPO, "aletsch_tpu_torch")
     sources = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
                if f.endswith(".py")]
-    assert len(sources) >= 8
+    assert len(sources) >= 11
+    banned = ("import jax", "from jax", "import aletsch_tpu.ops",
+              "from aletsch_tpu.ops", "from aletsch_tpu import ops")
     for path in sources:
         with open(path) as fh:
             for line in fh:
                 s = line.strip()
-                assert not s.startswith(("import jax", "from jax")), \
-                    "%s: %s" % (path, s)
+                assert not s.startswith(banned), "%s: %s" % (path, s)
