@@ -1,18 +1,51 @@
 """CLI entry point of the port: python -m aletsch_tpu_torch -i bam.list -o out.gtf
 
-Same flags and outputs as python -m aletsch_tpu (shared parsing and help),
-with the port's device seam.  The device comes from ALETSCH_TORCH_DEVICE
-(default cuda).  Multi-process and multi-host runs are not ported yet.
+Counterpart of aletsch_tpu/__main__.py: same flags and outputs.  The
+device comes from ALETSCH_TORCH_DEVICE (default cuda).  The multi-process
+and multi-host flags (--jobs N>1, --shard, --merge_shards, --jax_dist*) are
+parsed as there and refused with exit code 2: parallel/ is not ported yet.
 """
 
 import sys
 
-from aletsch_tpu.__main__ import _extract_shard_args
-from aletsch_tpu.config import parse_all, print_help
-from aletsch_tpu.constants import DEFAULT
-
+from .config import parse_all, print_help
+from .constants import DEFAULT
 from .meta import device_wave
 from .meta.incubator import Incubator
+
+
+def _extract_shard_args(argv):
+    shard = None
+    dump = None
+    merge = None
+    jobs = None
+    jaxdist = None
+    out = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "--jax_dist":
+            jaxdist = (int(argv[i + 1]), int(argv[i + 2]), argv[i + 3])
+            i += 4
+        elif a == "--jax_dist_launch":
+            jaxdist = ("launch", int(argv[i + 1]))
+            i += 2
+        elif a == "--shard":
+            shard = (int(argv[i + 1]), int(argv[i + 2]))
+            i += 3
+        elif a == "--shard_dump":
+            dump = argv[i + 1]
+            i += 2
+        elif a == "--merge_shards":
+            merge = argv[i + 1].split(",")
+            i += 2
+        elif a == "--jobs":
+            jobs = int(argv[i + 1])
+            i += 2
+        else:
+            out.append(a)
+            i += 1
+    return out, shard, dump, merge, jobs, jaxdist
 
 
 def main(argv=None):

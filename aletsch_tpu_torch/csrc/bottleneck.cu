@@ -20,26 +20,45 @@
 // v = 1 .. V-1 in order, best = max over ALL u < V of min(T[u], W[u, v])
 // (T[u] is still NEG for u >= v), then T[v] = max(T[v], best).  Every v
 // runs: step mode has no sink, and the native consumer reads T for every
-// vertex of the graph (core_scallop.h greedy_step_device).  Only f32
-// min, max and compares run, so the result equals the plain version's bit
-// for bit up to the sign of a zero (min/max over {-0, +0} may return
-// either; the consumer reads values only).  Build without
-// --use_fast_math.
+// vertex of the graph (core_scallop.h greedy_step_device).  A term with
+// u >= v is min(NEG, W[u, v]) = NEG and T[v] starts at NEG, so
+// T[v] = max(NEG, max over u < v of min(T[u], W[u, v])): that is what the
+// kernel computes.  Only f32 min, max and compares run, and max is taken
+// in another order than the plain version takes it, which changes nothing
+// but the sign of a zero (min/max over {-0, +0} may return either; the
+// consumer reads values only).  Build without --use_fast_math.
 //
-// What bounds it on this card: latency and launch cost, not bytes or
-// FLOPs.  A graph is V - 1 dependent steps, each a 64-wide max-reduction,
-// over 16 KB of input; on the step path a launch carries about 1.2 graphs
-// (one per paused graph of the wave that extracts next), so the card is
-// nearly idle and the launch itself is most of the cost.
+// The bound: bytes.  A graph at V = 64 reads 16 KB and writes 256 B once,
+// ~0.005 us at 3.35 TB/s (~0.31 us for 64 graphs), against ~4,000 min/max.
+// What the kernel actually waits on is far above that bound: the latency
+// of staging one graph, and the chain of V - 1 dependent steps (T[v] needs
+// T[u] for every u < v).  On the step path a launch carries about 1.2
+// graphs, so nothing hides either.
 //
-// What the design does about it: one warp (one CTA) per live graph, so a
-// launch covers exactly the graphs the wave exported; the graph's W sits
-// transposed in shared memory (Ws[v][u], rows padded to 65 floats so both
-// the staging stores and the per-step row reads are free of bank
-// conflicts); lane u holds T[u] and T[u + 32] in registers; each step is
-// two min, one max and a five-level __shfl_xor_sync max butterfly, with no
-// block barrier; the row is written coalesced at the end.  Batching rows
-// across waves, CUDA graphs and several graphs per CTA are later work.
+// What the design does about it ("push" form):
+// - each lane owns destinations: lane l keeps the running best of v = l
+//   and v = l + 32 in registers.  Step u broadcasts the now final T[u]
+//   from its owner with one __shfl_sync, and every lane folds
+//   min(T[u], W[u][v]) into its own best.  T[v] is final after step v - 1
+//   because every edge has u < v.  No reduction is left: the chain a step
+//   is one shuffle, one min and one max, where the pull form (gather
+//   min(T[u], W[u, v]) over u, then a five-level shuffle butterfly) had
+//   five dependent shuffle-and-max levels.  The loads of row u do not
+//   depend on the chain and are issued ahead by the unrolled loop;
+// - push form reads row u, contiguous in v, so shared memory keeps the
+//   export's [u][v] layout: no transpose, no padded rows, conflict-free
+//   reads.  Entries with v <= u (no edge of a topological order; the
+//   reference ignores them too, see above), and columns past V, are set to
+//   NEG on the way in, so the sweep needs no mask and lanes past V take no
+//   part;
+// - the whole block (8 warps) stages the graph, with 16-byte loads when
+//   V = 64 (the shape every caller passes), every thread's loads in
+//   flight together; then one warp runs the chain and the others exit at
+//   the one barrier.  Plain loads, not cp.async: the form conversion and
+//   the mask are applied in registers on the way to shared memory.
+// One CTA per live graph, so a launch covers exactly the graphs the wave
+// exported.  Batching rows across waves and CUDA graphs are host-side work
+// for later.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,52 +67,80 @@
 namespace {
 
 constexpr int MAXV = 64;
-constexpr int LD = MAXV + 1;        // padded row of Ws
+constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float NEG = -1.0e18f;
+constexpr float POS = 1.0e18f;
+
+// the value shared memory holds for W[u, v]
+template <bool NEG_FORM>
+__device__ __forceinline__ float staged(float w, int u, int v) {
+    if (!NEG_FORM) w = w > 0.0f ? w : NEG;
+    return v > u ? w : NEG;
+}
 
 template <bool NEG_FORM>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(THREADS)
 bottleneck_kernel(const float* __restrict__ W, int V, float* __restrict__ T) {
-    __shared__ float Ws[MAXV * LD];     // Ws[v * LD + u] = W[b, u, v]
+    __shared__ __align__(16) float Ws[MAXV * MAXV];  // Ws[u * MAXV + v]
     const int b = blockIdx.x;
-    const int lane = threadIdx.x;
-    const float NEG = -1.0e18f;
-    const float POS = 1.0e18f;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
     const float* Wb = W + (size_t)b * V * V;
 
-    // coalesced reads of W[b] (16 KB at V = 64), several loads in flight
-    #pragma unroll 8
-    for (int i = lane; i < V * V; i += 32) {
-        const int u = i / V, v = i - u * V;
-        float w = Wb[i];
-        if (!NEG_FORM) w = w > 0.0f ? w : NEG;
-        Ws[v * LD + u] = w;
-    }
-    __syncwarp();
-
-    float t0 = lane == 0 ? POS : NEG;   // T[lane]
-    float t1 = NEG;                     // T[lane + 32]
-    for (int v = 1; v < V; ++v) {
-        const float* row = Ws + v * LD;
-        // lanes past V take no part: -inf is the identity of max
-        float c = lane < V ? fminf(t0, row[lane]) : -INFINITY;
-        if (lane + 32 < V) c = fmaxf(c, fminf(t1, row[lane + 32]));
+    // rows 0 .. V-2 are read as sources; row V-1 has no edge to push
+    if (V == MAXV && (reinterpret_cast<uintptr_t>(Wb) & 15) == 0) {
+        const float4* W4 = reinterpret_cast<const float4*>(Wb);
+        float4* Ws4 = reinterpret_cast<float4*>(Ws);
         #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            c = fmaxf(c, __shfl_xor_sync(FULL, c, off));
-        if ((v & 31) == lane) {
-            if (v < 32) t0 = fmaxf(t0, c); else t1 = fmaxf(t1, c);
+        for (int j = 0; j < MAXV * MAXV / 4 / THREADS; ++j) {
+            const int i = tid + j * THREADS;
+            const int u = i >> 4, v = (i & 15) << 2;
+            float4 w = W4[i];
+            w.x = staged<NEG_FORM>(w.x, u, v);
+            w.y = staged<NEG_FORM>(w.y, u, v + 1);
+            w.z = staged<NEG_FORM>(w.z, u, v + 2);
+            w.w = staged<NEG_FORM>(w.w, u, v + 3);
+            Ws4[i] = w;
+        }
+    } else {
+        for (int u = warp; u < V - 1; u += THREADS / 32) {
+            const float* row = Wb + (size_t)u * V;
+            #pragma unroll
+            for (int v = lane; v < MAXV; v += 32)
+                Ws[u * MAXV + v] =
+                    v < V ? staged<NEG_FORM>(row[v], u, v) : NEG;
         }
     }
+    __syncthreads();
+    if (warp != 0) return;
+
+    float b0 = lane == 0 ? POS : NEG;   // best so far of v = lane; T[lane]
+    float b1 = NEG;                     // the same for v = lane + 32
+    const int last = V - 1;             // sources are u = 0 .. V-2
+    const int half = last < 32 ? last : 32;
+    #pragma unroll 8
+    for (int u = 0; u < half; ++u) {
+        const float tu = __shfl_sync(FULL, b0, u);
+        b0 = fmaxf(b0, fminf(tu, Ws[u * MAXV + lane]));
+        b1 = fmaxf(b1, fminf(tu, Ws[u * MAXV + lane + 32]));
+    }
+    // from u = 32 on, every v < 32 is final
+    #pragma unroll 8
+    for (int u = 32; u < last; ++u) {
+        const float tu = __shfl_sync(FULL, b1, u - 32);
+        b1 = fmaxf(b1, fminf(tu, Ws[u * MAXV + lane + 32]));
+    }
     float* Tb = T + (size_t)b * V;
-    if (lane < V) Tb[lane] = t0;
-    if (lane + 32 < V) Tb[lane + 32] = t1;
+    if (lane < V) Tb[lane] = b0;
+    if (lane + 32 < V) Tb[lane + 32] = b1;
 }
 
 template <bool NEG_FORM>
 int launch(const void* W, int B, int V, void* T, void* stream) {
     if (B > 0) {
-        bottleneck_kernel<NEG_FORM><<<B, 32, 0, (cudaStream_t)stream>>>(
+        bottleneck_kernel<NEG_FORM><<<B, THREADS, 0, (cudaStream_t)stream>>>(
             (const float*)W, V, (float*)T);
     }
     return (int)cudaGetLastError();

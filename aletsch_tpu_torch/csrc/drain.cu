@@ -13,25 +13,51 @@
 // w >= 0 && w > mincov, at most maxp rounds.  A graph that stops never
 // restarts; sink == 0 marks an inactive row.
 //
-// What bounds it on this card: latency, not bytes or FLOPs.  A round is a
-// chain of `sink` dependent steps (T[v] needs T[u] for every u < v), each a
-// 64-wide max-reduction, and a graph runs a few rounds.  A graph reads
-// ~48 KB once and does ~O(V^2) compare/min/max per round, so neither HBM nor
-// the ALUs come near their limits; what costs is the dependent-step chain.
+// The bound: bytes.  A full-width graph (V = 64, f64) reads 32 KB of W and
+// 16 KB of P and writes 4 KB of paths and 0.5 KB of ws once, ~0.016 us at
+// 3.35 TB/s (~1.0 us for 64 graphs); a round is only O(V^2) compares, mins
+// and selects.  What the kernel actually waits on is far above that
+// bound: the latency of staging one graph, and per round a chain of `sink`
+// dependent steps (T[v] needs T[u] for every u < v) followed by a pointer
+// chase from the sink.  A graph runs a few rounds on the main path and a
+// few dozen on full-width fuzz graphs.
 //
-// What the design does about it:
-// - one warp (one CTA) per live graph, so the launch covers exactly the
-//   graphs the wave exported and graphs run side by side on the SMs;
-// - W (transposed to [v][u], so a step reads one contiguous row) and P
-//   (narrowed to 16 bits) stay in shared memory for every round; T lives in
-//   registers, lane u holding T[u] and T[u + 32];
-// - each step is one warp-shuffle butterfly over (candidate, P << 6 | u)
-//   pairs, with no block barrier: the butterfly leaves the best value in
-//   every lane, so T[v] and parent[v] come out of the forward sweep and the
-//   walk is a pointer chase with no second DP;
-// - the forward sweep stops at the sink: W is in topological order (every
-//   edge u -> v has u < v, as the native export writes it), so nothing past
-//   the sink can reach it.
+// What the design does about it ("push" form):
+// - each lane owns destinations: lane l keeps, for v = l and v = l + 32,
+//   the best candidate so far and its key P << 6 | u in registers.  Step u
+//   broadcasts the now final T[u] from its owner with one __shfl_sync (an
+//   f64 is two independent 32-bit shuffles, one latency), and every lane
+//   folds min(T[u], W[u][v]) into its own best.  T[v] and parent[v] are
+//   final after step v - 1 because every edge has u < v.  No reduction is
+//   left: the chain a step is one shuffle, a min and a compare-select,
+//   where the pull form (gather the candidates of v over u, then a
+//   five-level shuffle butterfly over (candidate, key) pairs) had five
+//   dependent levels, each moving an f64 and a key.  The loads of row u do
+//   not depend on the chain and are issued ahead of it.  The fold itself
+//   is written without branches (lanes differ in what they take, and a
+//   divergent branch per candidate cost more than the arithmetic), and it
+//   compares w and T[u] against the best directly instead of their min,
+//   so only one level of f64 compares sits between the shuffle's arrival
+//   and the select;
+// - the tie rule is a maximum under the order "larger candidate, then
+//   larger key" and keys are distinct (u is in the key), so folding the
+//   candidates in increasing u picks the parent the butterfly picked.
+//   Validity (w >= 0 && T[u] >= 0) is tested per candidate as before;
+// - push form reads row u, contiguous in v, so shared memory keeps the
+//   export's [u][v] layout for W and P (P narrowed to 16 bits): no
+//   transpose, conflict-free reads.  Entries with v <= u or v > sink are
+//   staged as absent (NEG), so the sweep needs no mask, stops at the sink
+//   (nothing past it can reach it) and reads nothing unstaged;
+// - the whole block (8 warps) zeroes the graph's outputs and stages rows
+//   0 .. sink-1 of the (sink+1)^2 sub-block, a row a warp, coalesced, with
+//   no division and every thread's loads in flight together; then one warp
+//   runs the rounds and the others exit at the one barrier.  Plain loads,
+//   not a bulk asynchronous copy: the sub-block is strided, P is narrowed
+//   and the mask is applied in registers on the way;
+// - parent[v] is written once a round by the lane that owns v; the walk
+//   back is a one-lane pointer chase over shared memory, with no second DP.
+// One CTA per live graph, so the launch covers exactly the graphs the wave
+// exported and graphs run side by side on the SMs.
 //
 // Inputs are the native export's layout: W[b,u,v], P[b,u,v] (i32), sink[b]
 // (i32), scal[b] = {mincov, guard, smin}; outputs paths[b,k,v] (u8),
@@ -48,20 +74,39 @@
 namespace {
 
 constexpr int MAXV = 64;
+constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
+// Fold the candidate c = min(w, T[u]) of edge u -> v into v's running best:
+// it is taken if valid and larger, or equal with a larger key.  For a min,
+// c > best <=> w > best and tu > best, and c >= best likewise (exact for
+// every non-NaN value), so no compare waits for c.
 template <typename T>
-__global__ void __launch_bounds__(32)
+__device__ __forceinline__ void push(T& best, int& key, T tu, T w, int p,
+                                     int u) {
+    const int k = (p << 6) | u;
+    const bool gt = (w > best) & (tu > best);
+    const bool ge = (w >= best) & (tu >= best);
+    const bool take = (w >= T(0)) & (tu >= T(0)) & (gt | (ge & (k > key)));
+    const T c = w < tu ? w : tu;
+    best = take ? c : best;
+    key = take ? k : key;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
 drain_kernel(const T* __restrict__ W, const int32_t* __restrict__ P,
              const int32_t* __restrict__ sink, const T* __restrict__ scal,
              int V, int maxp, uint8_t* __restrict__ paths,
              T* __restrict__ ws, int32_t* __restrict__ npaths) {
-    __shared__ T Ws[MAXV * MAXV];        // Ws[v * MAXV + u] = W[b, u, v]
-    __shared__ int16_t Ps[MAXV * MAXV];  // Ps[v * MAXV + u] = P[b, u, v]
+    __shared__ T Ws[MAXV * MAXV];        // Ws[u * MAXV + v] = W[b, u, v]
+    __shared__ int16_t Ps[MAXV * MAXV];  // Ps[u * MAXV + v] = P[b, u, v]
     __shared__ int8_t par[MAXV];         // parent of v on the best path
 
     const int b = blockIdx.x;
-    const int lane = threadIdx.x;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
     const T NEG = T(-1.0e18);
     const T POS = T(1.0e18);
     const size_t VV = (size_t)V * V;
@@ -70,86 +115,98 @@ drain_kernel(const T* __restrict__ W, const int32_t* __restrict__ P,
     uint8_t* pb = paths + (size_t)b * maxp * V;
     T* wsb = ws + (size_t)b * maxp;
 
+    // rows past the last recorded path are zero, as in the reference: zero
+    // everything now, with the whole block
+    const int nbytes = maxp * V;
+    if ((nbytes & 15) == 0 && (reinterpret_cast<uintptr_t>(pb) & 15) == 0) {
+        uint4* pb4 = reinterpret_cast<uint4*>(pb);
+        for (int i = tid; i < nbytes / 16; i += THREADS)
+            pb4[i] = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+        for (int i = tid; i < nbytes; i += THREADS) pb[i] = 0;
+    }
+    for (int i = tid; i < maxp; i += THREADS) wsb[i] = T(0);
+
     int s = sink[b];
-    if (s >= V) s = 0;                   // out of range: inactive
-    int k = 0;
-    if (s > 0) {
-        const int n = s + 1;             // vertices 0..sink take part
-        for (int i = lane; i < n * n; i += 32) {
-            const int u = i / n, v = i - u * n;
-            Ws[v * MAXV + u] = Wb[(size_t)u * V + v];
-            Ps[v * MAXV + u] = (int16_t)Pb[(size_t)u * V + v];
-        }
-        __syncwarp();
-        const T mincov = scal[3 * b], guard = scal[3 * b + 1],
-                smin = scal[3 * b + 2];
+    if (s <= 0 || s >= V) {              // inactive, or out of range
+        if (tid == 0) npaths[b] = 0;
+        return;
+    }
+    const T mincov = scal[3 * b], guard = scal[3 * b + 1],
+            smin = scal[3 * b + 2];
 
-        for (; k < maxp; ++k) {
-            // forward bottleneck DP with fused parent choice
-            T t0 = lane == 0 ? POS : NEG;    // T[lane]
-            T t1 = NEG;                      // T[lane + 32]
-            T c = NEG;
-            for (int v = 1; v <= s; ++v) {
-                const T* col = Ws + v * MAXV;
-                const int16_t* pcol = Ps + v * MAXV;
-                c = NEG;
-                int key = -1;
-                if (lane < v) {
-                    const T w = col[lane];
-                    if (w >= T(0) && t0 >= T(0)) {
-                        c = w < t0 ? w : t0;
-                        key = ((int)pcol[lane] << 6) | lane;
-                    }
-                }
-                if (lane + 32 < v) {
-                    const T w = col[lane + 32];
-                    if (w >= T(0) && t1 >= T(0)) {
-                        const T c1 = w < t1 ? w : t1;
-                        const int k1 = ((int)pcol[lane + 32] << 6) | (lane + 32);
-                        if (c1 > c || (c1 == c && k1 > key)) { c = c1; key = k1; }
-                    }
-                }
-                #pragma unroll
-                for (int off = 16; off > 0; off >>= 1) {
-                    const T oc = __shfl_xor_sync(FULL, c, off);
-                    const int ok = __shfl_xor_sync(FULL, key, off);
-                    if (oc > c || (oc == c && ok > key)) { c = oc; key = ok; }
-                }
-                if ((v & 31) == lane) {
-                    if (v < 32) t0 = c; else t1 = c;
-                }
-                if (lane == 0) par[v] = key < 0 ? (int8_t)-1 : (int8_t)(key & 63);
-            }
-            const T wsink = c;               // T[sink], in every lane
-            if (!(wsink >= T(0) && wsink > mincov)) break;
-
-            // walk back from the sink, subtracting the bottleneck
-            unsigned long long mask = 1ull;  // vertex 0 is always on the path
-            if (lane == 0) {
-                int x = s;
-                while (x > 0) {
-                    mask |= 1ull << x;
-                    const int u = par[x];
-                    if (u < 0) break;        // unreachable when wsink >= 0
-                    T& e = Ws[x * MAXV + u];
-                    const T d = e - wsink;
-                    const T ad = d < T(0) ? -d : d;
-                    e = ad <= smin ? NEG : (d <= guard ? guard : d);
-                    x = u;
-                }
-            }
-            mask = __shfl_sync(FULL, mask, 0);
-            __syncwarp();
-
-            uint8_t* row = pb + (size_t)k * V;
-            if (lane < V) row[lane] = (uint8_t)((mask >> lane) & 1ull);
-            if (lane + 32 < V) row[lane + 32] = (uint8_t)((mask >> (lane + 32)) & 1ull);
-            if (lane == 0) wsb[k] = wsink;
+    // vertices 0 .. sink take part; rows 0 .. sink-1 are read as sources
+    #pragma unroll 2
+    for (int u = warp; u < s; u += THREADS / 32) {
+        const T* wrow = Wb + (size_t)u * V;
+        const int32_t* prow = Pb + (size_t)u * V;
+        #pragma unroll
+        for (int v = lane; v < MAXV; v += 32) {
+            const bool present = v > u && v <= s;
+            Ws[u * MAXV + v] = present ? wrow[v] : NEG;
+            Ps[u * MAXV + v] = present ? (int16_t)prow[v] : (int16_t)-1;
         }
     }
-    // rows past the last recorded path are zero, as in the reference
-    for (int i = k * V + lane; i < maxp * V; i += 32) pb[i] = 0;
-    for (int i = k + lane; i < maxp; i += 32) wsb[i] = T(0);
+    __syncthreads();
+    if (warp != 0) return;
+
+    const int half = s < 32 ? s : 32;
+    int k = 0;
+    for (; k < maxp; ++k) {
+        // forward bottleneck DP with fused parent choice
+        T t0 = lane == 0 ? POS : NEG;    // best so far of v = lane; T[lane]
+        T t1 = NEG;                      // the same for v = lane + 32
+        int k0 = -1, k1 = -1;            // their keys, P << 6 | u
+        #pragma unroll 4
+        for (int u = 0; u < half; ++u) {
+            const T w0 = Ws[u * MAXV + lane];
+            const T w1 = Ws[u * MAXV + lane + 32];
+            const int p0 = Ps[u * MAXV + lane];
+            const int p1 = Ps[u * MAXV + lane + 32];
+            const T tu = __shfl_sync(FULL, t0, u);
+            push(t0, k0, tu, w0, p0, u);
+            push(t1, k1, tu, w1, p1, u);
+        }
+        // from u = 32 on, every v < 32 is final
+        #pragma unroll 4
+        for (int u = 32; u < s; ++u) {
+            const T w1 = Ws[u * MAXV + lane + 32];
+            const int p1 = Ps[u * MAXV + lane + 32];
+            const T tu = __shfl_sync(FULL, t1, u - 32);
+            push(t1, k1, tu, w1, p1, u);
+        }
+        const T wsink = __shfl_sync(FULL, s < 32 ? t0 : t1, s & 31);
+        if (!(wsink >= T(0) && wsink > mincov)) break;
+
+        if (lane <= s) par[lane] = (int8_t)(k0 < 0 ? -1 : (k0 & 63));
+        if (lane + 32 <= s)
+            par[lane + 32] = (int8_t)(k1 < 0 ? -1 : (k1 & 63));
+        __syncwarp();
+
+        // walk back from the sink, subtracting the bottleneck
+        unsigned long long mask = 1ull;  // vertex 0 is always on the path
+        if (lane == 0) {
+            int x = s;
+            while (x > 0) {
+                mask |= 1ull << x;
+                const int u = par[x];
+                if (u < 0) break;        // unreachable when wsink >= 0
+                T& e = Ws[u * MAXV + x];
+                const T d = e - wsink;
+                const T ad = d < T(0) ? -d : d;
+                e = ad <= smin ? NEG : (d <= guard ? guard : d);
+                x = u;
+            }
+        }
+        mask = __shfl_sync(FULL, mask, 0);
+        __syncwarp();
+
+        uint8_t* row = pb + (size_t)k * V;
+        if (lane < V) row[lane] = (uint8_t)((mask >> lane) & 1ull);
+        if (lane + 32 < V)
+            row[lane + 32] = (uint8_t)((mask >> (lane + 32)) & 1ull);
+        if (lane == 0) wsb[k] = wsink;
+    }
     if (lane == 0) npaths[b] = k;
 }
 
@@ -158,7 +215,7 @@ int launch(const void* W, const void* P, const void* sink, const void* scal,
            int B, int V, int maxp, void* paths, void* ws, void* npaths,
            void* stream) {
     if (B > 0) {
-        drain_kernel<T><<<B, 32, 0, (cudaStream_t)stream>>>(
+        drain_kernel<T><<<B, THREADS, 0, (cudaStream_t)stream>>>(
             (const T*)W, (const int32_t*)P, (const int32_t*)sink,
             (const T*)scal, V, maxp, (uint8_t*)paths, (T*)ws,
             (int32_t*)npaths);

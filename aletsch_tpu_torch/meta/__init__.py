@@ -1,1 +1,1 @@
-"""The port's seams into the shared incubator (aletsch_tpu.meta)."""
+"""Cohort orchestration of the port: incubator, group assembly, device waves."""

@@ -29,12 +29,12 @@ from __future__ import annotations
 
 import os
 
-from aletsch_tpu.meta import native_core
-
 from ..ops import bottleneck as bottleneck_ops
 from ..ops import drain as drain_ops
 from ..ops.greedy_dp import DeviceGreedy
 from ..ops.greedy_fused import DeviceGreedyFused, device_f64_exact
+from ..utils.tracing import TRACE_UNPORTED
+from . import native_core
 
 stats = {
     "host_graphs": 0,       # paused graphs solved by the native host DP
@@ -71,9 +71,7 @@ def check_supported(cfg):
                 "--%s on: %s is not ported to aletsch_tpu_torch yet"
                 % (attr, what))
     if getattr(cfg, "jax_profile_dir", ""):
-        raise NotImplementedError(
-            "--jax_profile_dir: device tracing is not ported to "
-            "aletsch_tpu_torch yet (ROADMAP Queue 1 item 11)")
+        raise NotImplementedError(TRACE_UNPORTED)
 
 
 def enabled(cfg, n_groups):
@@ -81,7 +79,7 @@ def enabled(cfg, n_groups):
     fused or in step mode.  'on' or ALETSCH_DEVICE=1 engage it; 'off' and
     'auto' stay on the host ('auto' waits for the crossover model, ROADMAP
     Queue 1 item 5).  Same answer as the JAX package's gate on a CPU
-    backend, which the shared incubator consults before it launches a wave
+    backend.  The incubator also consults it before it launches a wave
     asynchronously on the host."""
     env = os.environ.get("ALETSCH_DEVICE")
     if env == "0":
@@ -91,6 +89,14 @@ def enabled(cfg, n_groups):
         return False
     require_native()
     return True
+
+
+def auto_device_ok(cfg, n_graphs=64):
+    """Whether the measured crossover model predicts a device win for a
+    wave of n_graphs; the 'auto' stages ask (meta/bundle_group.py).  No
+    model is ported yet (ROADMAP Queue 1 item 5), so 'auto' stays on the
+    host, as the JAX package's does on a CPU backend."""
+    return False
 
 
 def step_mode():

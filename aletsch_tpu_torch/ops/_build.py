@@ -5,8 +5,10 @@ builds them in seconds without PyTorch's headers.  Each source compiles to
 an object in its own nvcc process, all started together, and one more nvcc
 links them.  The library goes to <repo>/build/aletsch_tpu_torch/, named by
 a hash of all the sources and the flags, and is built on first use; a
-failed build raises.  Nothing here runs at import time: the CPU tests
-import every module on a machine without nvcc.
+failed build raises.  What ptxas reports for each kernel (registers, shared
+memory, spills) is kept beside the library, see ptxas_report.  Nothing here
+runs at import time: the CPU tests import every module on a machine without
+nvcc.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("drain.cu", "bottleneck.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "aletsch_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LIB = None
 
@@ -45,6 +48,17 @@ def library_path():
             h.update(name.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, "libaletsch_kernels_%s.so"
                         % h.hexdigest()[:16])
+
+
+def ptxas_report():
+    """What ptxas printed when the current library was built (one entry
+    per kernel instance: registers, shared memory, spills); '' when the
+    library has not been built."""
+    path = library_path() + ".ptxas.txt"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as fh:
+        return fh.read()
 
 
 def _check(cmd, returncode, stderr):
@@ -79,6 +93,9 @@ def build():
         cmd = [nvcc, *ARCH, "-shared", "-o", lib, *[o for _, o, _ in jobs]]
         res = subprocess.run(cmd, capture_output=True, text=True)
         _check(cmd, res.returncode, res.stderr)
+        with open(os.path.join(tmp, "ptxas.txt"), "w") as fh:
+            fh.write("".join(errs))
+        os.replace(fh.name, out + ".ptxas.txt")
         os.replace(lib, out)        # atomic: concurrent builds agree
     return out, time.perf_counter() - t0
 

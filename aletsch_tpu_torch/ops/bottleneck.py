@@ -15,8 +15,9 @@ weight (T[b, 0] = POS, NEG where v is unreachable):
 - _kernel_tile (TPU kernel #3, v1), through bottleneck_from_source_pallas(
   version=1): here bottleneck_from_source(W, version=1).
 
-- bottleneck_cuda: wrapper of csrc/bottleneck.cu (one warp per graph, W
-  transposed in shared memory, T in registers); CUDA tensors only.
+- bottleneck_cuda: wrapper of csrc/bottleneck.cu (one block per graph
+  stages W into shared memory, one warp runs the chain in push form, T in
+  registers); CUDA tensors only.
 - bottleneck_torch: the same function in plain PyTorch, vectorised over
   the batch like greedy_dp._build and _kernel_tile_v2; the CPU tests and
   the card's checks compare against it.
@@ -36,7 +37,7 @@ import torch
 from ..device import device as port_device
 from .constants import NEG, POS
 
-MAXV = 64       # the kernel keeps lane u's T[u] and T[u + 32] in registers
+MAXV = 64       # the kernel's lane l owns vertices l and l + 32
 
 
 def _check(W):
@@ -110,7 +111,7 @@ def bottleneck_from_source(W, version=2, device=None):
     read column v through a lane mask only because the TPU bans dynamic
     lane indexing (pallas_kernels.py:10-17), and the card has no such ban.
     No padding either: the JAX form pads B to its 8-graph tile, and a
-    launch here has one warp per graph."""
+    launch here has one block per graph."""
     if version not in (1, 2):
         raise ValueError("version must be 1 or 2, got %r" % (version,))
     dev = port_device() if device is None else torch.device(device)

@@ -5,8 +5,9 @@ XLA f64 form in aletsch_tpu/ops/greedy_fused.py::_build.  All three compute
 greedy_fused.drain_host: the whole repeat-until-drained greedy
 decomposition of each graph of a [B, V, V] topological-order batch.
 
-- drain_cuda: wrapper of csrc/drain.cu (one warp per graph, W and P in
-  shared memory, f64 or f32 by W's dtype).  CUDA tensors only.
+- drain_cuda: wrapper of csrc/drain.cu (one block per graph stages W and
+  P into shared memory, one warp runs the rounds in push form; f64 or f32
+  by W's dtype).  CUDA tensors only.
 - drain_torch: the same function in plain PyTorch, vectorised over the
   batch like greedy_fused._build; the CPU tests and the card's checks
   compare against it.
@@ -25,7 +26,7 @@ import torch
 
 from .constants import NEG, POS
 
-MAXV = 64       # the kernel keeps lane u's T[u] and T[u + 32] in registers
+MAXV = 64       # the kernel's lane l owns vertices l and l + 32
 
 
 def _check(W, P, sink, scal, maxp):
@@ -179,7 +180,41 @@ def fuzz_batch(rng, B, V, n_vertices=None):
     return W, P, sink, scal
 
 
-def fuzz_tables(rng, B, V, n_vertices=None):
+def fuzz_ties(rng, B, V):
+    """Random DAG batch built to break a wrong tie rule or a wrong sweep
+    order.  Weights are small integers, so most candidates of a vertex tie
+    and the parent is decided by P alone; about 4 % of the edges are 0.0 or
+    -0.0; the in-edge positions P of a vertex are a random permutation, so
+    the largest P is neither the first nor the last u; up to 6 in-edges a
+    vertex.  Vertex counts spread over [4, V] (sinks below and above 32 at
+    V = 64); one row in four has its sink before the last vertex (what
+    lies past the sink must not matter), one in eight has every in-edge of
+    the sink removed (no path), one in sixteen is inactive (sink 0).
+    Returns numpy (W, P, sink, scal) like fuzz_batch, with mincov 0.5."""
+    W = np.full((B, V, V), NEG)
+    P = np.full((B, V, V), -1, dtype=np.int32)
+    sink = np.zeros(B, dtype=np.int32)
+    scal = np.tile(np.array([0.5, 0.01, 1e-8]), (B, 1))
+    for b in range(B):
+        n = int(rng.integers(4, V + 1))
+        for j in range(1, n):
+            k = int(rng.integers(1, min(j, 6) + 1))
+            us = rng.choice(j, size=k, replace=False)
+            for u, pos in zip(us, rng.permutation(k)):
+                r = rng.random()
+                W[b, u, j] = (0.0 if r < 0.02 else -0.0 if r < 0.04
+                              else float(rng.integers(1, 5)))
+                P[b, u, j] = pos
+        sink[b] = n - 1 if b % 4 else int(rng.integers(n // 2, n))
+        if b % 8 == 5:
+            W[b, :, sink[b]] = NEG
+            P[b, :, sink[b]] = -1
+        if b % 16 == 9:
+            sink[b] = 0
+    return W, P, sink, scal
+
+
+def fuzz_tables(rng, B, V, n_vertices=None, back_edges=False):
     """Random [B, V, V] f32 batch for the single-source bottleneck DP
     (ops/bottleneck.py), in the NEG form the step-mode export writes: the
     DAGs and weights of fuzz_batch cast to f32, with about 5 % of the edges
@@ -187,8 +222,11 @@ def fuzz_tables(rng, B, V, n_vertices=None):
     about half of the graphs one or two vertices cut off from the source
     (every in-edge dropped), so they and what only they reach are
     unreachable.  Passed as it is, the batch is also a positive-form input:
-    NEG, 0.0 and -0.0 all read as absent there.  Same generator for the
-    CPU tests and the on-card check, for the reason fuzz_batch gives."""
+    NEG, 0.0 and -0.0 all read as absent there.  With back_edges, the
+    diagonal and a third of the entries below it carry weights too: no
+    edge of a topological order, and the DP must ignore them (T[u] is
+    still NEG when v <= u is computed).  Same generator for the CPU tests
+    and the on-card check, for the reason fuzz_batch gives."""
     W, _, sink, _ = fuzz_batch(rng, B, V, n_vertices)
     W = W.astype(np.float32)
     present = W > np.float32(NEG)
@@ -200,4 +238,10 @@ def fuzz_tables(rng, B, V, n_vertices=None):
             k = int(rng.integers(1, 3))
             cut = rng.choice(np.arange(1, sink[b] + 1), size=k, replace=False)
             W[b][:, cut] = np.float32(NEG)
+    if back_edges:
+        low = np.tril(np.ones((V, V), dtype=bool))[None]
+        junk = rng.integers(1, 1000, size=W.shape).astype(np.float32)
+        W = np.where(low & (rng.random(W.shape) < 0.33), junk, W)
+        idx = np.arange(V)
+        W[:, idx, idx] = junk[:, idx, idx]
     return W

@@ -3,26 +3,32 @@
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Phases, each of which exits non-zero on failure:
 1. environment: the card's name and power limit, the kernel build from
-   aletsch_tpu_torch/csrc with nvcc (sm_90a), the native host core;
+   aletsch_tpu_torch/csrc with nvcc (sm_90a) and what ptxas reports for
+   each kernel, the native host core;
 2. kernel vs plain: the drain kernel against its plain PyTorch version on
    the card and on the host CPU (IEEE f64), bit for bit in f64 (ws
    compared as int64 views) and against the plain version on the card in
-   f32, on fuzz batches and edge cases; then, at the main path's shapes,
-   the kernel's device time (CUDA events with the host's launch cost held
+   f32, on fuzz batches (random and full-width graphs at V = 64, and
+   tie-heavy batches at V = 64 and 33: equal candidates with different P,
+   sinks below and above 32 and before the last vertex, rows with no path
+   to the sink) and edge cases; then, at the main path's shapes, the
+   kernel's device time (CUDA events with the host's launch cost held
    outside the window, and the profiler's kernel time), the wrapper call's
-   time and the plain version's call time;
+   time, the plain version's call time, and the kernel's roofline bound
+   with the share of it reached;
 2b. bottleneck kernel vs plain: the single-source bottleneck kernel
    (csrc/bottleneck.cu) in both forms against its plain PyTorch version
    on the card and on the host CPU, bit for bit on int32 views with -0.0
    turned into +0.0 (the consumer reads values only), on fuzz batches with
-   0.0 and -0.0 edges and unreachable vertices at V = 16, 33 and 64 and
-   the edge cases; its own path, bottleneck_from_source(version=1 and 2),
-   driven with every launch count reset; then its times, measured as the
-   drain's;
+   0.0 and -0.0 edges and unreachable vertices at V = 16, 33 and 64, with
+   and without entries on and below the diagonal (which the DP must
+   ignore), and the edge cases; its own path, bottleneck_from_source(
+   version=1 and 2), driven with every launch count reset; then its times
+   and bound, measured as the drain's;
 3. main path: the production cohort (2000 genes x 10 paired-end samples,
    tools/refbuild/baseline.py) through python -m aletsch_tpu with the
    device off (the reference bytes) and through the port's CLI with the
@@ -45,14 +51,23 @@ kernel's launches on its own path (drain: phase 3; the bottleneck's NEG
 form: phase 3b; its positive form: bottleneck_from_source in phase 2b),
 "ms" is the kernel's device time at that path's shape (one live graph for
 the drain and the NEG form, as most dispatches carry one; 64 graphs for
-the positive form) and "plain_ms" the plain version's call time on the
-card at that shape.  This script imports only the port; the JAX package
-runs as a subprocess.  jax is made unimportable first: the port never
-uses it.
+the positive form), "plain_ms" the plain version's call time on the card
+at that shape, and "bound_ms" the least time the card could take for that
+call: the larger of its bytes (each input read once, each output written
+once) over 3.35 TB/s and its min/max/compare/select operations (counted
+from this run's sinks and path counts) over the card's rate for them.
+"library_ms" is null: no single PyTorch call computes a max-min chain in
+topological order with the drain's tie rule.  With --kernels-only the
+script stops after phase 2b, prints no result line and exits 0: a short
+first check of a changed kernel, and a way to time two checkouts in turns
+on one card.  This script imports only the port; the JAX package runs
+as a subprocess.  jax and aletsch_tpu are made unimportable first: the port
+never uses either.
 """
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,6 +75,7 @@ import tempfile
 import time
 
 sys.modules["jax"] = None
+sys.modules["aletsch_tpu"] = None
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GENES, SAMPLES = 2000, 10
@@ -70,6 +86,13 @@ DEVICE_ARGS = ["--device_greedy", "on", "--device_min_vertices", "2",
                "--verbose", "0"]
 SPIN_CYCLES = 10_000_000        # ~5 ms of GPU clock: longer than any enqueue
 REPS = 25
+# Published peaks of one H100 SXM at its full power limit.  The 67 TFLOP/s
+# of f32 outside the tensor cores counts a fused multiply-add as two, so a
+# min, max, compare or select goes at half of it; f64 at half of that again
+# (the data sheet's 34 TFLOP/s of f64, likewise counted).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+F64_OPS_PER_S = F32_OPS_PER_S / 2
 
 
 class SmokeFailure(Exception):
@@ -115,6 +138,16 @@ def environment():
     path, secs = _build.build()
     log("kernel library %s (nvcc %.1f s)"
         % (os.path.relpath(path, REPO), secs))
+    entry = "?"
+    for line in _build.ptxas_report().splitlines():
+        # "Compiling entry function '<mangled name>'", then its spills,
+        # then its registers and shared memory
+        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
+                      r"I(\w+?)EE", line)
+        if m:
+            entry = "%s<%s>" % m.groups()
+        elif "spill" in line or "Used" in line:
+            log("ptxas %s: %s" % (entry, line.split(":", 1)[-1].strip()))
     t0 = time.perf_counter()
     device_wave.require_native()
     log("native core ready (%.1f s)" % (time.perf_counter() - t0))
@@ -166,6 +199,40 @@ def _check_batch(tag, batch, maxp, dev):
             err = max(err, _same("%s kernel vs plain on the host CPU" % tag,
                                  k, host))
     return err
+
+
+def _bound(nbytes, ops, ops_per_s):
+    """(bound in ms, what bounds it): the larger of the call's bytes over
+    the card's memory rate and its operations over the card's rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _drain_bound(args, out):
+    """Roofline bound of one drain call on these inputs: every input and
+    output once, and for every active graph one forward sweep a recorded
+    path plus the one that stops it, a sweep being one min, one compare
+    and one select for each pair u < v <= sink."""
+    import torch
+    W, _, sink, _ = args
+    paths, _, npaths = out
+    s = sink.to(torch.int64).cpu()
+    sweeps = torch.clamp(npaths.to(torch.int64).cpu() + 1, max=paths.shape[1])
+    ops = int((sweeps * (s > 0) * (s * (s + 1) // 2) * 3).sum())
+    rate = F64_OPS_PER_S if W.dtype == torch.float64 else F32_OPS_PER_S
+    return _bound(_nbytes(*args, *out), ops, rate)
+
+
+def _bottleneck_bound(W, T):
+    """Roofline bound of one bottleneck call: W in, T out, one min and one
+    max for each pair u < v."""
+    B, V, _ = W.shape
+    return _bound(_nbytes(W, T), B * (V * (V - 1) // 2) * 2, F32_OPS_PER_S)
 
 
 def _call_ms(fn):
@@ -256,6 +323,19 @@ def kernel_vs_plain(dev):
     cases = [("fuzz%d" % i, D.fuzz_batch(rng, B, V)) for i in range(4)]
     cases += [("full%d" % i, D.fuzz_batch(rng, B, V, n_vertices=V))
               for i in range(4)]
+    ties = [D.fuzz_ties(rng, B, v) for v in (V, V, 33)]
+    cases += [("ties%d V=%d" % (i, t[0].shape[1]), t)
+              for i, t in enumerate(ties)]
+    W, _, sink, _ = ties[0]
+    col = W[np.arange(B), :, sink]
+    tied = int((((col == col.max(axis=1, keepdims=True)) & (col > 0))
+                .sum(axis=1) > 1).sum())
+    require(tied > 0 and ((sink > 0) & (sink < 32)).any()
+            and (sink > 32).any() and (sink == 0).any(),
+            "the tie batches miss a hard case")
+    log("tie batches: %d of %d sinks have equal heaviest in-edges that "
+        "differ in P; sinks from %d to %d" % (tied, B, sink[sink > 0].min(),
+                                              sink.max()))
     err = 0.0
     for tag, batch in cases:
         err = max(err, _check_batch(tag, batch, MAXP, dev))
@@ -287,12 +367,15 @@ def kernel_vs_plain(dev):
              "profiler": _profiled_ms(lambda: D.drain_cuda(*a, MAXP)),
              "call": _call_ms(lambda: D.drain_cuda(*a, MAXP)),
              "plain": _call_ms(lambda: D.drain_torch(*a, MAXP))}
+        t["bound"], t["bound_by"] = _drain_bound(a, D.drain_cuda(*a, MAXP))
         times[n] = t
         log("drain f64 nrows=%d: kernel device %.4f ms (events, launch "
             "cost outside), profiler %s ms; wrapper call %.4f ms; plain "
-            "call %.4f ms (medians of %d)"
+            "call %.4f ms (medians of %d); bound %.6f ms (%s), share of it "
+            "reached %.3f %%"
             % (n, t["device"], "%.4f" % t["profiler"] if t["profiler"]
-               else "not measured", t["call"], t["plain"], REPS))
+               else "not measured", t["call"], t["plain"], REPS, t["bound"],
+               t["bound_by"], 100.0 * t["bound"] / t["device"]))
     return err, times
 
 
@@ -354,11 +437,23 @@ def bottleneck_vs_plain(dev):
     rng = np.random.default_rng(77)
     err, n_batches, zeros = 0.0, 0, [0, 0]
     for V in (16, 33, 64):
-        for i in range(3):
-            W = fuzz_tables(rng, 64, V)
+        for i in range(4):
+            # the last batch of each V carries entries on and below the
+            # diagonal, which the DP must ignore
+            W = fuzz_tables(rng, 64, V, back_edges=(i == 3))
             zeros[0] += int(((W == 0) & ~np.signbit(W)).sum())
             zeros[1] += int(((W == 0) & np.signbit(W)).sum())
             err = max(err, _check_tables("V=%d fuzz%d" % (V, i), W, dev))
+            if i == 3:
+                low = np.tril(np.ones((V, V), dtype=bool))[None]
+                require(((W > BN.NEG) & low).any(), "no back edges drawn")
+                same = BN.bottleneck_cuda(torch.from_numpy(
+                    np.where(low, np.float32(BN.NEG), W)).to(dev), True)
+                back = BN.bottleneck_cuda(torch.from_numpy(W).to(dev), True)
+                require(np.array_equal(_canon(same.cpu().numpy()),
+                                       _canon(back.cpu().numpy())),
+                        "V=%d: entries on or below the diagonal changed T"
+                        % V)
             n_batches += 1
     require(zeros[0] > 0 and zeros[1] > 0, "no 0.0 / -0.0 edges drawn")
     # edge cases: one row, an all-NEG row, the full batch
@@ -408,13 +503,17 @@ def bottleneck_vs_plain(dev):
                      "bottleneck_kernel"),
                  "call": _call_ms(lambda: BN.bottleneck_cuda(a, neg_form)),
                  "plain": _call_ms(lambda: BN.bottleneck_torch(a, neg_form))}
+            t["bound"], t["bound_by"] = _bottleneck_bound(
+                a, BN.bottleneck_cuda(a, neg_form))
             times[form, n] = t
             log("bottleneck %s form, V=64, nrows=%d: kernel device %.4f ms "
                 "(events, launch cost outside), profiler %s ms; wrapper "
-                "call %.4f ms; plain call %.4f ms (medians of %d)"
+                "call %.4f ms; plain call %.4f ms (medians of %d); bound "
+                "%.6f ms (%s), share of it reached %.3f %%"
                 % (form, n, t["device"], "%.4f" % t["profiler"]
                    if t["profiler"] else "not measured", t["call"],
-                   t["plain"], REPS))
+                   t["plain"], REPS, t["bound"], t["bound_by"],
+                   100.0 * t["bound"] / t["device"]))
     return err, pos_launches, times
 
 
@@ -567,8 +666,14 @@ def step_path(tmp, lst, ref, env):
     return res
 
 
-def main():
+def main(argv=None):
     import torch
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--kernels-only"]):
+        print("usage: python3 chip_smoke.py [--kernels-only]",
+              file=sys.stderr)
+        return 2
+    kernels_only = bool(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -584,6 +689,9 @@ def main():
         smi, name = environment()
         err, times = kernel_vs_plain(dev)
         bn_err, pos_launches, bn_times = bottleneck_vs_plain(dev)
+        if kernels_only:
+            log("--kernels-only: stopping before the main path")
+            return 0
         res = main_path()
         st, launches, rows = res["stats"], res["launches"], res["rows"]
         log("device stats: %s" % json.dumps(st, sort_keys=True))
@@ -642,7 +750,10 @@ def main():
         "launches": launches,
         "max_abs_err": err,
         "ms": times[1]["device"],
-        "plain_ms": times[1]["plain"]}, {
+        "plain_ms": times[1]["plain"],
+        "bound_ms": times[1]["bound"],
+        "bound_by": times[1]["bound_by"],
+        "library_ms": None}, {
         "name": "bottleneck (NEG form)",
         "route": "cuda",
         "source": "aletsch_tpu_torch/csrc/bottleneck.cu",
@@ -650,7 +761,10 @@ def main():
         "launches": step_launches,
         "max_abs_err": bn_err,
         "ms": bn_times["neg", 1]["device"],
-        "plain_ms": bn_times["neg", 1]["plain"]}, {
+        "plain_ms": bn_times["neg", 1]["plain"],
+        "bound_ms": bn_times["neg", 1]["bound"],
+        "bound_by": bn_times["neg", 1]["bound_by"],
+        "library_ms": None}, {
         "name": "bottleneck (positive form)",
         "route": "cuda",
         "source": "aletsch_tpu_torch/csrc/bottleneck.cu",
@@ -658,7 +772,10 @@ def main():
         "launches": pos_launches,
         "max_abs_err": bn_err,
         "ms": bn_times["pos", 64]["device"],
-        "plain_ms": bn_times["pos", 64]["plain"]}]}))
+        "plain_ms": bn_times["pos", 64]["plain"],
+        "bound_ms": bn_times["pos", 64]["bound"],
+        "bound_by": bn_times["pos", 64]["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

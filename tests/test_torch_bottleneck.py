@@ -10,8 +10,11 @@ bridge_dp.bottleneck_all_sources_host row 0.  The DP is f32 min/max only,
 so every comparison is bit for bit on int32 views, after turning -0.0 into
 +0.0: min/max over {-0.0, +0.0} may return either zero (numpy, torch and
 XLA disagree), and the native consumer reads values only.  The inputs
-carry 0.0 and -0.0 edges, so that rule is exercised.  The CUDA kernel's
-own check is marked `cuda` and runs only on a card."""
+carry 0.0 and -0.0 edges, so that rule is exercised.  The CUDA kernel takes
+the maxima in another order (each destination keeps a running best, sources
+in increasing order); that order is emulated here in numpy and held to the
+same references.  The CUDA kernel's own check is marked `cuda` and runs
+only on a card."""
 
 import numpy as np
 import pytest
@@ -130,6 +133,55 @@ def test_neg_form_zero_edges_and_edge_cases():
         _same(_torch_neg(Wv), greedy_dp.single_source_host(Wv))
 
 
+def _push_tables(W, neg_form):
+    """The DP in the order the Hopper kernel takes it (csrc/bottleneck.cu,
+    "push" form), in numpy f32: each destination v keeps its best so far;
+    step u = 0 .. V-2 offers min(T[u], W[u, v]) to every v > u, where T[u]
+    is final.  Entries with v <= u are no edges and are never offered."""
+    B, V, _ = W.shape
+    if not neg_form:
+        W = np.where(W > 0, W, NEGF)
+    best = np.full((B, V), NEGF)
+    best[:, 0] = np.float32(greedy_dp.POS)
+    idx = np.arange(V)
+    for u in range(V - 1):
+        offer = np.where(idx > u, W[:, u, :], NEGF)
+        best = np.maximum(best, np.minimum(best[:, u:u + 1], offer))
+    return best
+
+
+@pytest.mark.parametrize("V", [16, 33, 64])
+@pytest.mark.parametrize("back_edges", [False, True])
+def test_push_order_matches_plain_and_jax(V, back_edges):
+    """The kernel's sweep order, emulated on the CPU, against
+    bottleneck_torch in both forms and, through the JAX package, against
+    the host DP, the XLA scan and the Pallas kernels in interpret mode: bit
+    for bit (signed zeros canonicalised) with 0.0 and -0.0 edges,
+    unreachable vertices, and entries on and below the diagonal that every
+    form must ignore."""
+    rng = np.random.default_rng(200 + V)
+    W = tdrain.fuzz_tables(rng, 24, V, back_edges=back_edges)
+    assert ((W == 0) & np.signbit(W)).any()
+    assert ((W == 0) & ~np.signbit(W)).any()
+    low = np.tril(np.ones((V, V), dtype=bool))[None]
+    assert ((W > NEGF) & low).any() == back_edges
+    e = _push_tables(W, True)
+    assert e.dtype == np.float32
+    _same(e, _torch_neg(W))
+    _same(e, greedy_dp.single_source_host(W))
+    _same(e, _xla(W))
+    if V == 64:
+        _same(e, _pallas_neg(W, tile=8))
+    if back_edges:
+        # the entries on and below the diagonal changed nothing
+        _same(e, _torch_neg(np.where(low, NEGF, W)))
+    p = _push_tables(W, False)
+    _same(p, tbn.bottleneck(torch.from_numpy(W), neg_form=False).numpy())
+    for version in (1, 2):
+        _same(p, pallas_kernels.bottleneck_from_source_pallas(
+            W, interpret=True, version=version))
+
+
 @pytest.mark.parametrize("version", [1, 2])
 def test_positive_form_matches_pallas_and_host(version):
     W = tdrain.fuzz_tables(np.random.default_rng(6 + version), 12, 64)
@@ -225,13 +277,14 @@ def test_bottleneck_cuda_matches_plain_on_card():
         pytest.skip("needs an NVIDIA GPU")
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
-    for V in (16, 33, 64):
-        W = tdrain.fuzz_tables(rng, 64, V)
+    for V, back_edges in ((16, False), (33, True), (64, False), (64, True)):
+        W = tdrain.fuzz_tables(rng, 64, V, back_edges=back_edges)
         Wd = torch.from_numpy(W).to(dev)
         for neg_form in (True, False):
             k = tbn.bottleneck_cuda(Wd, neg_form).cpu().numpy()
             p = tbn.bottleneck_torch(Wd, neg_form).cpu().numpy()
             _same(k, p)
+            _same(k, _push_tables(W, neg_form))
             if neg_form:
                 _same(k, greedy_dp.single_source_host(W))
             else:

@@ -4,7 +4,10 @@ On the CPU the port runs the plain PyTorch version (drain_torch); it must
 equal, bit for bit, the XLA f64 drain (greedy_fused.get_fused_fn), the
 numpy oracle drain_host and, in f32, the Pallas kernel in interpret mode.
 The drain is pure sub/min/max/compare, so every tolerance is zero.  The
-CUDA kernel's own check is marked `cuda` and runs only on a card."""
+CUDA kernel takes the candidates in another order than these (each
+destination keeps a running best, sources in increasing order); that order
+is emulated here in numpy and held to the same references.  The CUDA
+kernel's own check is marked `cuda` and runs only on a card."""
 
 import numpy as np
 import pytest
@@ -140,6 +143,105 @@ def test_drain_torch_f32_matches_pallas_interpret(seed):
     _assert_same(t, (pp, wsp, npp))
 
 
+def _push_drain(W, P, sink, scal, maxp):
+    """The drain in the order the Hopper kernel takes it (csrc/drain.cu,
+    "push" form), in numpy: each destination v keeps its best candidate so
+    far and its key P << 6 | u; step u = 0 .. sink-1 offers
+    min(T[u], W[u, v]) to every v in (u, sink], where T[u] is final; a
+    candidate replaces the best if it is larger, or equal with a larger
+    key.  The parent falls out of the sweep, and the walk back subtracts
+    the bottleneck as drain_host does."""
+    B, V, _ = W.shape
+    neg, pos = W.dtype.type(greedy_fused.NEG), W.dtype.type(greedy_fused.POS)
+    paths = np.zeros((B, maxp, V), dtype=np.uint8)
+    ws = np.zeros((B, maxp), dtype=W.dtype)
+    npaths = np.zeros(B, dtype=np.int32)
+    idx = np.arange(V)
+    for b in range(B):
+        s = int(sink[b])
+        if s <= 0 or s >= V:
+            continue
+        Wb = W[b].copy()
+        mincov, guard, smin = scal[b]
+        for k in range(maxp):
+            best = np.full(V, neg)
+            best[0] = pos
+            key = np.full(V, -1, dtype=np.int64)
+            for u in range(s):
+                tu = best[u]
+                c = np.minimum(Wb[u], tu)
+                ku = (P[b, u].astype(np.int64) << 6) | u
+                # as the kernel tests it: min(w, tu) > best <=> w > best
+                # and tu > best, and >= likewise
+                gt = (Wb[u] > best) & (tu > best)
+                ge = (Wb[u] >= best) & (tu >= best)
+                take = ((idx > u) & (idx <= s) & (Wb[u] >= 0) & (tu >= 0)
+                        & (gt | (ge & (ku > key))))
+                best = np.where(take, c, best)
+                key = np.where(take, ku, key)
+            w = best[s]
+            if not (w >= 0 and w > mincov):
+                break
+            x = s
+            paths[b, k, 0] = 1
+            while x > 0:
+                paths[b, k, x] = 1
+                u = int(key[x] & 63)
+                d = Wb[u, x] - w
+                Wb[u, x] = neg if abs(d) <= smin else \
+                    (guard if d <= guard else d)
+                x = u
+            ws[b, k] = w
+            npaths[b] = k + 1
+    return paths, ws, npaths
+
+
+@pytest.mark.parametrize("V", [16, 33, 64])
+@pytest.mark.parametrize("gen", ["ties", "batch"])
+def test_push_order_matches_plain_host_and_xla(gen, V):
+    """The kernel's sweep order and tie handling, emulated on the CPU,
+    against drain_torch, drain_host and the XLA drain, bit for bit, on
+    batches full of equal candidates with different P, 0.0 and -0.0 edges,
+    sinks on both sides of 32, sinks before the last vertex, rows with no
+    path and inactive rows."""
+    rng = np.random.default_rng(100 + V)
+    if gen == "ties":
+        batch = tdrain.fuzz_ties(rng, 32, V)
+        W, P, sink, _ = batch
+        assert (sink == 0).any() and (sink > 0).any()
+        if V == 64:
+            assert ((sink > 0) & (sink < 32)).any() and (sink > 32).any()
+        # equal best candidates with different P do occur
+        col = W[np.arange(32), :, sink]
+        top = col.max(axis=1, keepdims=True)
+        assert (((col == top) & (top > 0)).sum(axis=1) > 1).any()
+        assert ((W == 0) & np.signbit(W)).any()
+        assert ((W == 0) & ~np.signbit(W)).any()
+    else:
+        batch = tdrain.fuzz_batch(rng, 16, V)
+    maxp = 32
+    e = _push_drain(*batch, maxp)
+    _assert_same(e, _torch(*batch, maxp))
+    _assert_same(e, _host(*batch, maxp))
+    _assert_same(e, _xla(*batch, maxp))
+    assert e[2].sum() > 0
+    if gen == "ties":
+        assert (e[2][batch[2] > 0] == 0).any()      # rows with no path
+
+
+def test_push_order_f32_matches_pallas_interpret():
+    """The f32 instance's arithmetic: the emulation in f32 against the
+    Pallas kernel in interpret mode and drain_torch in f32."""
+    W, P, sink, scal = tdrain.fuzz_ties(np.random.default_rng(8), 16, 64)
+    pp, wsp, npp = pallas_drain.drain_pallas(
+        W, P, sink, scal[:, 0], scal[:, 1], scal[:, 2], maxp=64,
+        interpret=True)
+    e = _push_drain(W.astype(np.float32), P, sink, scal.astype(np.float32),
+                    64)
+    _assert_same(e, (pp, wsp, npp))
+    _assert_same(e, _torch(W, P, sink, scal, 64, dtype=torch.float32))
+
+
 def test_solver_matches_jax_solver():
     """The port's DeviceGreedyFused on the CPU returns what the JAX solver
     returns for the same staged rows, for a full and a partial wave."""
@@ -224,6 +326,8 @@ def test_drain_cuda_matches_plain_on_card():
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     for batch in (tdrain.fuzz_batch(rng, 64, 64),
+                  tdrain.fuzz_ties(rng, 64, 64),
+                  tdrain.fuzz_ties(rng, 64, 33),
                   crossover.synth_batch(64, 64, seed=11)):
         args = tfused.batch_from_numpy(*batch, dev)
         for dt in (torch.float64, torch.float32):
@@ -234,3 +338,4 @@ def test_drain_cuda_matches_plain_on_card():
             _assert_same(k, p)
             if dt == torch.float64:
                 _assert_same(k, _host(*batch, 64))
+                _assert_same(k, _push_drain(*batch, 64))

@@ -3,9 +3,11 @@ package on the adversarial cohort of test_device_greedy_fused.py, with the
 greedy decomposition forced onto the device (the plain PyTorch versions on
 the CPU), fused and in step mode (ALETSCH_DEVICE_GREEDY=step): every
 output file byte-identical, the device engaged, trust and verify mode, the
-device gates, the refusals of what is not ported yet, and no jax import."""
+device gates, the refusals of what is not ported yet, and a run with jax
+and the JAX package both unimportable: the port owns every module it runs."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -14,10 +16,10 @@ import pytest
 from aletsch_tpu import __main__ as ref_main
 from aletsch_tpu.config import default_params
 from aletsch_tpu.meta import device_wave as ref_wave
-from aletsch_tpu.meta import native_core
 from aletsch_tpu.ops import greedy_dp as ref_greedy_dp
 from aletsch_tpu_torch import __main__ as port_main
 from aletsch_tpu_torch.meta import device_wave as port_wave
+from aletsch_tpu_torch.meta import native_core
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORCED = ["--device_min_vertices", "2", "--device_min_groups", "0",
@@ -146,9 +148,9 @@ def test_step_mode_matches_reference(pallas, cohort, reference_off,
 @pytest.mark.parametrize("env", [None, "0", "1"])
 @pytest.mark.parametrize("mode", ["off", "on", "auto"])
 def test_device_gates_agree(mode, env, greedy, monkeypatch):
-    """The shared incubator launches a wave asynchronously on the host
-    when the JAX package's gate says no, and then never asks the port: the
-    two gates must agree for every greedy mode, fused and step."""
+    """Parity of the two device gates: the port's incubator launches a
+    wave asynchronously on the host exactly where the JAX package's does
+    (on a CPU backend), for every greedy mode, fused and step."""
     for var, val in (("ALETSCH_DEVICE", env),
                      ("ALETSCH_DEVICE_GREEDY", greedy)):
         if val is None:
@@ -233,11 +235,13 @@ def test_help_matches_reference(capsys):
 @needs_native
 @pytest.mark.parametrize("greedy", [None, "step"])
 def test_cli_runs_with_jax_blocked(greedy, cohort, reference_off, tmp_path):
-    """python -m aletsch_tpu_torch with jax made unimportable, fused and
-    in step mode: exit 0 and the reference's bytes."""
+    """python -m aletsch_tpu_torch with jax AND the JAX package made
+    unimportable, fused and in step mode: exit 0 and the reference's bytes
+    in every output file."""
     out = tmp_path / "nojax"
     (out / "gtf").mkdir(parents=True)
     code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['aletsch_tpu'] = None; "
             "from aletsch_tpu_torch.__main__ import main; "
             "sys.exit(main(sys.argv[1:]))")
     env = dict(os.environ, ALETSCH_TORCH_DEVICE="cpu", PYTHONPATH=REPO)
@@ -250,23 +254,31 @@ def test_cli_runs_with_jax_blocked(greedy, cohort, reference_off, tmp_path):
          "on", *FORCED, "--verbose", "1"], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert (out / "meta.gtf").read_bytes() == reference_off["meta.gtf"]
+    got = {"meta.gtf": (out / "meta.gtf").read_bytes()}
+    for f in sorted(os.listdir(out / "gtf")):
+        got[f] = (out / "gtf" / f).read_bytes()
+    assert got == reference_off
     device_line = [ln for ln in res.stderr.splitlines()
                    if ln.startswith("[aletsch_tpu_torch] device:")][-1]
     assert ("'dispatches'" in device_line) == (greedy == "step")
+    assert ("'fused_graphs'" in device_line) == (greedy is None)
 
 
-def test_package_never_imports_jax():
-    """No source of the port imports jax, or a module of the JAX package's
-    ops/ (they import jax, and the port owns their counterparts)."""
+def test_sources_never_import_the_jax_package():
+    """No source of the port and no line of chip_smoke.py imports jax or
+    anything of aletsch_tpu (the package without _torch), not even a module
+    there that does not import jax: the port keeps its own copy."""
     pkg = os.path.join(REPO, "aletsch_tpu_torch")
     sources = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
                if f.endswith(".py")]
-    assert len(sources) >= 11
-    banned = ("import jax", "from jax", "import aletsch_tpu.ops",
-              "from aletsch_tpu.ops", "from aletsch_tpu import ops")
+    assert len(sources) >= 50
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    banned = re.compile(
+        r"^\s*(from|import)\s+(jax|aletsch_tpu)(\.|\s|$)"
+        r"|import_module\(\s*['\"](jax|aletsch_tpu)['\".]"
+        r"|__import__\(\s*['\"](jax|aletsch_tpu)['\".]")
     for path in sources:
         with open(path) as fh:
-            for line in fh:
-                s = line.strip()
-                assert not s.startswith(banned), "%s: %s" % (path, s)
+            for n, line in enumerate(fh, 1):
+                assert not banned.search(line), "%s:%d: %s" % (
+                    path, n, line.strip())
