@@ -28,8 +28,9 @@
 // but the sign of a zero (min/max over {-0, +0} may return either; the
 // consumer reads values only).  Build without --use_fast_math.
 //
-// The bound: bytes.  A graph at V = 64 reads 16 KB and writes 256 B once,
-// ~0.005 us at 3.35 TB/s (~0.31 us for 64 graphs), against ~4,000 min/max.
+// The bound: bytes.  Only the entries with u < v can change T, so a graph
+// at V = 64 needs 2,016 of its 4,096 entries, 8 KB, and writes 256 B once:
+// ~0.0025 us at 3.35 TB/s (~0.16 us for 64 graphs), against ~4,000 min/max.
 // What the kernel actually waits on is far above that bound: the latency
 // of staging one graph, and the chain of V - 1 dependent steps (T[v] needs
 // T[u] for every u < v).  On the step path a launch carries about 1.2

@@ -13,11 +13,12 @@
 // w >= 0 && w > mincov, at most maxp rounds.  A graph that stops never
 // restarts; sink == 0 marks an inactive row.
 //
-// The bound: bytes.  A full-width graph (V = 64, f64) reads 32 KB of W and
-// 16 KB of P and writes 4 KB of paths and 0.5 KB of ws once, ~0.016 us at
-// 3.35 TB/s (~1.0 us for 64 graphs); a round is only O(V^2) compares, mins
-// and selects.  What the kernel actually waits on is far above that
-// bound: the latency of staging one graph, and per round a chain of `sink`
+// The bound: bytes.  Only the entries with u < v <= sink can count, so a
+// full-width graph (V = 64, sink 63, f64) needs 2,016 of its 4,096 entries,
+// 16 KB of W and 8 KB of P, and writes 4 KB of paths and 0.5 KB of ws once:
+// ~0.009 us at 3.35 TB/s, and less for a lower sink; a round is only
+// O(sink^2) compares, mins and selects.  What the kernel actually waits
+// on is far above that bound: the latency of staging one graph, and per round a chain of `sink`
 // dependent steps (T[v] needs T[u] for every u < v) followed by a pointer
 // chase from the sink.  A graph runs a few rounds on the main path and a
 // few dozen on full-width fuzz graphs.

@@ -53,9 +53,11 @@ form: phase 3b; its positive form: bottleneck_from_source in phase 2b),
 the drain and the NEG form, as most dispatches carry one; 64 graphs for
 the positive form), "plain_ms" the plain version's call time on the card
 at that shape, and "bound_ms" the least time the card could take for that
-call: the larger of its bytes (each input read once, each output written
-once) over 3.35 TB/s and its min/max/compare/select operations (counted
-from this run's sinks and path counts) over the card's rate for them.
+call: the larger of its bytes over 3.35 TB/s (each output written once
+and each input read once, of W and P only the entries that can count:
+u < v <= sink of an active graph for the drain, u < v for the bottleneck)
+and its min/max/compare/select operations over the card's rate for them,
+both counted from this run's sinks and path counts.
 "library_ms" is null: no single PyTorch call computes a max-min chain in
 topological order with the drain's tie rule.  With --kernels-only the
 script stops after phase 2b, prints no result line and exits 0: a short
@@ -202,11 +204,12 @@ def _check_batch(tag, batch, maxp, dev):
 
 
 def _bound(nbytes, ops, ops_per_s):
-    """(bound in ms, what bounds it): the larger of the call's bytes over
-    the card's memory rate and its operations over the card's rate."""
+    """(bound in ms, what bounds it, the bytes counted): the larger of the
+    call's bytes over the card's memory rate and its operations over the
+    card's rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
 def _nbytes(*tensors):
@@ -214,25 +217,34 @@ def _nbytes(*tensors):
 
 
 def _drain_bound(args, out):
-    """Roofline bound of one drain call on these inputs: every input and
-    output once, and for every active graph one forward sweep a recorded
-    path plus the one that stops it, a sweep being one min, one compare
-    and one select for each pair u < v <= sink."""
+    """Roofline bound of one drain call on these inputs, counting what
+    this run's sinks need.  Bytes: of W and P only the entries the drain
+    can use, those with u < v <= sink of each active graph (sink > 0),
+    s (s + 1) / 2 of them; sink, scal and every output in full.
+    Operations: for every active graph one forward sweep a recorded path
+    plus the one that stops it, a sweep being one min, one compare and one
+    select for each of those entries."""
     import torch
-    W, _, sink, _ = args
+    W, P, sink, scal = args
     paths, _, npaths = out
     s = sink.to(torch.int64).cpu()
+    pairs = (s > 0) * (s * (s + 1) // 2)
+    nbytes = (int(pairs.sum()) * (W.element_size() + P.element_size())
+              + _nbytes(sink, scal, *out))
     sweeps = torch.clamp(npaths.to(torch.int64).cpu() + 1, max=paths.shape[1])
-    ops = int((sweeps * (s > 0) * (s * (s + 1) // 2) * 3).sum())
+    ops = int((sweeps * pairs * 3).sum())
     rate = F64_OPS_PER_S if W.dtype == torch.float64 else F32_OPS_PER_S
-    return _bound(_nbytes(*args, *out), ops, rate)
+    return _bound(nbytes, ops, rate)
 
 
 def _bottleneck_bound(W, T):
-    """Roofline bound of one bottleneck call: W in, T out, one min and one
-    max for each pair u < v."""
+    """Roofline bound of one bottleneck call: of W the V (V - 1) / 2
+    entries with u < v of each graph in (no other entry can change T), T
+    out, and one min and one max for each of those entries."""
     B, V, _ = W.shape
-    return _bound(_nbytes(W, T), B * (V * (V - 1) // 2) * 2, F32_OPS_PER_S)
+    pairs = B * (V * (V - 1) // 2)
+    return _bound(pairs * W.element_size() + _nbytes(T), pairs * 2,
+                  F32_OPS_PER_S)
 
 
 def _call_ms(fn):
@@ -367,15 +379,18 @@ def kernel_vs_plain(dev):
              "profiler": _profiled_ms(lambda: D.drain_cuda(*a, MAXP)),
              "call": _call_ms(lambda: D.drain_cuda(*a, MAXP)),
              "plain": _call_ms(lambda: D.drain_torch(*a, MAXP))}
-        t["bound"], t["bound_by"] = _drain_bound(a, D.drain_cuda(*a, MAXP))
+        t["bound"], t["bound_by"], t["bytes"] = _drain_bound(
+            a, D.drain_cuda(*a, MAXP))
         times[n] = t
         log("drain f64 nrows=%d: kernel device %.4f ms (events, launch "
             "cost outside), profiler %s ms; wrapper call %.4f ms; plain "
-            "call %.4f ms (medians of %d); bound %.6f ms (%s), share of it "
-            "reached %.3f %%"
+            "call %.4f ms (medians of %d); bound %.7f ms (%s; %d bytes needed "
+            "at sinks %s), share of it reached %.3f %%"
             % (n, t["device"], "%.4f" % t["profiler"] if t["profiler"]
                else "not measured", t["call"], t["plain"], REPS, t["bound"],
-               t["bound_by"], 100.0 * t["bound"] / t["device"]))
+               t["bound_by"], t["bytes"],
+               "%d to %d" % (int(a[2].min()), int(a[2].max())),
+               100.0 * t["bound"] / t["device"]))
     return err, times
 
 
@@ -503,16 +518,16 @@ def bottleneck_vs_plain(dev):
                      "bottleneck_kernel"),
                  "call": _call_ms(lambda: BN.bottleneck_cuda(a, neg_form)),
                  "plain": _call_ms(lambda: BN.bottleneck_torch(a, neg_form))}
-            t["bound"], t["bound_by"] = _bottleneck_bound(
+            t["bound"], t["bound_by"], t["bytes"] = _bottleneck_bound(
                 a, BN.bottleneck_cuda(a, neg_form))
             times[form, n] = t
             log("bottleneck %s form, V=64, nrows=%d: kernel device %.4f ms "
                 "(events, launch cost outside), profiler %s ms; wrapper "
                 "call %.4f ms; plain call %.4f ms (medians of %d); bound "
-                "%.6f ms (%s), share of it reached %.3f %%"
+                "%.7f ms (%s; %d bytes needed), share of it reached %.3f %%"
                 % (form, n, t["device"], "%.4f" % t["profiler"]
                    if t["profiler"] else "not measured", t["call"],
-                   t["plain"], REPS, t["bound"], t["bound_by"],
+                   t["plain"], REPS, t["bound"], t["bound_by"], t["bytes"],
                    100.0 * t["bound"] / t["device"]))
     return err, pos_launches, times
 

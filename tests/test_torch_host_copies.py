@@ -3,11 +3,12 @@
 aletsch_tpu_torch imports nothing of aletsch_tpu: it keeps its own copy of
 every host module it runs, under the same sub-package and file name.  These
 tests guard the copies against drift.  A plain copy must equal its original
-once the package name is rewritten (and two wordings of docstrings are
-brought in line: the absolute mount point that some give for the upstream
-C++ sources is dropped, and the offline replay program is called a
-harness).  A seam module,
-which differs on purpose, must equal its original in every function but
+once the package name is rewritten.  Two wordings of docstrings are
+brought in line, each by a pattern tied to its one context so that it can
+hide no other difference: the absolute mount point that five module
+docstrings give in brackets for the upstream C++ sources is dropped, and
+the offline replay program of native/replay_batch.cpp is called a
+harness.  A seam module, which differs on purpose, must equal its original in every function but
 the ones named here, and the behaviour behind the seam is held to the JAX
 package's on seeded inputs.  A fix to a host module of the reference goes
 into the copy in the same change, or these fail.
@@ -75,8 +76,9 @@ def _read(pkg, rel):
 def _as_copied(src):
     """The original's text as the copy holds it."""
     src = re.sub(r"aletsch_tpu(?!_torch)", PORT, src)
-    src = re.sub(r"/[a-z]+/reference/", "", src)
-    return re.sub(r"(gprof replay) [a-z]+", r"\1 harness", src)
+    src = re.sub(r"\(/[a-z]+/reference/", "(", src)
+    return re.sub(r"(gprof replay) [a-z]+( \(native/replay_batch\.cpp\))",
+                  r"\1 harness\2", src)
 
 
 def _defs(src):
