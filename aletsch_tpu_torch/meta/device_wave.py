@@ -1,28 +1,47 @@
 """Wave-level orchestration of the device DPs, PyTorch/CUDA port.
 
 Counterpart of aletsch_tpu/meta/device_wave.py.  One region wave's groups
-are assembled as paused native GroupRuns (native/core.cpp); every group
-whose splice graph pauses for the greedy decomposition (pause kind 1) is
-exported into one [64, 64, 64] batch, in one of two modes:
+(meta/incubator.py) are assembled concurrently as paused native GroupRuns
+(native/core.cpp); the runs pause at four kinds of DP, and the wave batches
+each kind across its groups into dispatches on the port's device:
 
-- fused (the default): each graph is exported once in f64, and one launch
-  of the drain (ops/greedy_fused.py over ops/drain.py) drains them all.
-  The native consumer replays the device paths (trust mode) or re-checks
+- kind 1, greedy decomposition: every group's currently-active splice
+  graph is exported into one [64, 64, 64] batch, in one of two modes.
+  Fused (the default): each graph is exported once in f64, and one launch
+  of the drain (ops/greedy_fused.py over ops/drain.py) drains them all;
+  the native consumer replays the device paths (trust mode) or re-checks
   them against its own drain (verify mode), so the bytes are the host's
-  either way;
-- step (ALETSCH_DEVICE_GREEDY=step): each extraction exports the graph's
-  current f32 adjacency, one launch of the single-source bottleneck DP
-  (ops/greedy_dp.py over ops/bottleneck.py) computes every exported
-  graph's table, and the native consumer backtraces one path from each.
+  either way.  Step (ALETSCH_DEVICE_GREEDY=step): each extraction exports
+  the graph's current f32 adjacency, one launch of the single-source
+  bottleneck DP (ops/greedy_dp.py over ops/bottleneck.py) computes every
+  exported graph's table, and the native consumer backtraces one path
+  from each.
+- kind 2, bridging pier DP: each group pauses once per bridging phase with
+  every queued (source-run, strand) DP instance of every bundle exported
+  together (core.cpp GroupRun::queue_bridge); the wave batches instances
+  across groups into [64, ...] dispatches (ops/bridge_topk.py) and feeds
+  results back in queue order for the native backtrace and vote.
+- kind 3, cross-sample junction support: one [NS, J] row of weights per
+  group, summed over the sample axis (ops/support.py).
+- kind 4, the scallop resolution ladder: each paused graph's dense
+  pre-ladder state is exported, one dispatch runs the resolution-arm
+  prefix of every exported graph in lockstep (ops/ladder_device.py over
+  ops/ladder_kernel.py), and the native consumer replays the decision
+  logs (trust mode) or compares them with its own ladder (verify mode).
 
-A graph the native export refuses (outside [minv, maxv], or a weight set
-whose f32 cast is not injective in step mode) is solved by the native host
-DP, as in the reference.  Not ported yet, and so refused rather than run
-on another path when asked for: the bridge top-K (pause kind 2), the
-support reduce (kind 3), the ladder (kind 4), and the measured 'auto'
-policy.  In 'off' and 'auto' those stages stay on the native host path,
-as the JAX package leaves them on a CPU backend.  Device failures
-propagate.
+Graphs within a group stay strictly sequential (later graphs' cross-sample
+supports read earlier graphs' post-greedy state), so the batch axis is the
+group axis.  A wave engages when the greedy stage or any of the three
+other stages is forced on, and then kind 1 always runs on the device too.
+An instance the native export refuses (too small, too large, f32-lossy
+weights, over-padded windows) is solved by the native host DP mid-stream;
+results are byte-identical either way.
+
+Not ported yet, and so refused rather than run on another path when asked
+for: the device similarity matmul and the measured 'auto' policy ('auto'
+stays on the native host path, as the JAX package's does on a CPU
+backend).  Device failures propagate: a stage that is forced on and cannot
+build its solver raises.
 """
 
 from __future__ import annotations
@@ -31,31 +50,37 @@ import os
 
 from ..ops import bottleneck as bottleneck_ops
 from ..ops import drain as drain_ops
+from ..ops.bridge_topk import DeviceBridge, K, S
 from ..ops.greedy_dp import DeviceGreedy
 from ..ops.greedy_fused import DeviceGreedyFused, device_f64_exact
+from ..ops.ladder_device import DeviceLadder
+from ..ops.support import DeviceSupport
 from ..utils.tracing import TRACE_UNPORTED
 from . import native_core
 
 stats = {
-    "host_graphs": 0,       # paused graphs solved by the native host DP
-    "device_steps": 0,      # device paths consumed (fused: trust mode)
+    "host_graphs": 0,        # paused graphs solved by the native host DP
+    "device_steps": 0,       # device paths consumed (fused: trust mode)
+    "host_bridge_insts": 0,  # pier-DP instances solved by the host DP
+    "device_bridge_insts": 0,  # pier-DP instances consumed from the device
+    "host_support_groups": 0,   # support reduces solved by the host sums
+    "device_support_groups": 0,  # support reduces consumed from the device
+    "host_ladder_graphs": 0,    # ladder-paused graphs solved on host
+    "device_ladder_graphs": 0,  # ladder decision logs consumed from device
     "waves": 0,
 }
 
 _DEVICE = None
 _FUSED = None
 _FUSED_TRUST = None
+_BRIDGE = None
+_SUPPORT = None
+_LADDER = None
+_LADDER_TRUST = None
 
-# (config field, forcing env var, what is missing and where it is queued)
+# (config field, what is missing and where it is queued)
 _UNPORTED = (
-    ("device_bridge", "ALETSCH_DEVICE_BRIDGE",
-     "the bridge top-K DP, pause kind 2 (ROADMAP Queue 1 item 3)"),
-    ("device_support", "ALETSCH_DEVICE_SUPPORT",
-     "the support reduce, pause kind 3 (ROADMAP Queue 1 item 4)"),
-    ("device_ladder", "ALETSCH_DEVICE_LADDER",
-     "the resolution ladder, pause kind 4 (ROADMAP Queue 1 item 6)"),
-    ("device_similarity", None,
-     "the similarity matmul (ROADMAP Queue 1 item 8)"),
+    ("device_similarity", "the similarity matmul (ROADMAP Queue 1 item 8)"),
 )
 
 
@@ -64,9 +89,8 @@ def check_supported(cfg):
     not ported yet.  ALETSCH_DEVICE=0 turns every device stage off."""
     if os.environ.get("ALETSCH_DEVICE") == "0":
         return
-    for attr, env, what in _UNPORTED:
-        if getattr(cfg, attr, "off") == "on" or \
-                (env is not None and os.environ.get(env) == "1"):
+    for attr, what in _UNPORTED:
+        if getattr(cfg, attr, "off") == "on":
             raise NotImplementedError(
                 "--%s on: %s is not ported to aletsch_tpu_torch yet"
                 % (attr, what))
@@ -75,20 +99,62 @@ def check_supported(cfg):
 
 
 def enabled(cfg, n_groups):
-    """Decide whether this wave's greedy decomposition runs on the device,
-    fused or in step mode.  'on' or ALETSCH_DEVICE=1 engage it; 'off' and
-    'auto' stay on the host ('auto' waits for the crossover model, ROADMAP
-    Queue 1 item 5).  Same answer as the JAX package's gate on a CPU
-    backend.  The incubator also consults it before it launches a wave
-    asynchronously on the host."""
+    """Decide whether to run this wave through the device path: when the
+    greedy stage is 'on' (or ALETSCH_DEVICE=1) or any of bridge, support
+    and ladder is enabled.  'off' and 'auto' stay on the host ('auto'
+    waits for the crossover model, ROADMAP Queue 1 item 5).  Same answer
+    as the JAX package's gate on a CPU backend.  The incubator also
+    consults it before it launches a wave asynchronously on the host."""
     env = os.environ.get("ALETSCH_DEVICE")
     if env == "0":
         return False
     check_supported(cfg)
-    if env != "1" and getattr(cfg, "device_greedy", "off") != "on":
+    if env == "1" or getattr(cfg, "device_greedy", "off") == "on" \
+            or bridge_enabled(cfg) or support_enabled(cfg) \
+            or ladder_enabled(cfg):
+        require_native()
+        return True
+    return False
+
+
+def _stage_enabled(cfg, attr, default, env_var, available, what):
+    """One stage's gate: 'on' or its env var at 1 force it, its env var at
+    0 turns it off, 'auto' asks the measured policy.  A forced stage whose
+    native pause is missing raises."""
+    mode = getattr(cfg, attr, default)
+    env = os.environ.get(env_var)
+    if env == "0":
         return False
-    require_native()
-    return True
+    if env == "1" or mode == "on" or (mode == "auto" and auto_device_ok(cfg)):
+        if not available():
+            raise RuntimeError("--%s on needs the native core's %s pause "
+                               "(native/libabam.so, built by make -C native)"
+                               % (attr, what))
+        return True
+    return False
+
+
+def bridge_enabled(cfg):
+    """Whether GroupRuns also pause at bridging pier-DP instances."""
+    return _stage_enabled(cfg, "device_bridge", "off",
+                          "ALETSCH_DEVICE_BRIDGE",
+                          native_core.bridge_pause_available, "bridge")
+
+
+def support_enabled(cfg):
+    """Whether GroupRuns also pause at the cross-sample junction support
+    reduce (ops/support.py)."""
+    return _stage_enabled(cfg, "device_support", "off",
+                          "ALETSCH_DEVICE_SUPPORT",
+                          native_core.support_pause_available, "support")
+
+
+def ladder_enabled(cfg):
+    """Whether GroupRuns pause at the scallop resolution ladder (pause
+    kind 4; ops/ladder_kernel.py batched over the wave's graphs)."""
+    return _stage_enabled(cfg, "device_ladder", "auto",
+                          "ALETSCH_DEVICE_LADDER",
+                          native_core.ladder_pause_available, "ladder")
 
 
 def auto_device_ok(cfg, n_graphs=64):
@@ -138,17 +204,52 @@ def _get_fused_device():
     return _FUSED
 
 
+def _get_bridge_device():
+    global _BRIDGE
+    if _BRIDGE is None:
+        _BRIDGE = DeviceBridge()
+    return _BRIDGE
+
+
+def _get_support_device():
+    global _SUPPORT
+    if _SUPPORT is None:
+        _SUPPORT = DeviceSupport()
+    return _SUPPORT
+
+
+def _get_ladder_device():
+    global _LADDER, _LADDER_TRUST
+    if _LADDER is None:
+        _LADDER_TRUST = device_f64_exact()
+        _LADDER = DeviceLadder()
+    return _LADDER
+
+
+def reset_solvers():
+    """Drop every solver: the next wave builds them anew, probes trust
+    again (ALETSCH_FUSED_TRUST is read then) and starts their stats at 0."""
+    global _DEVICE, _FUSED, _FUSED_TRUST, _BRIDGE, _SUPPORT, _LADDER, \
+        _LADDER_TRUST
+    _DEVICE = _FUSED = _FUSED_TRUST = _BRIDGE = _SUPPORT = _LADDER = \
+        _LADDER_TRUST = None
+
+
 def device_stats():
     d = dict(stats)
     d["drain_launches"] = drain_ops.drain_cuda.launches
     d["bottleneck_launches"] = bottleneck_ops.bottleneck_cuda.launches
-    if _DEVICE is not None:
-        d.update(_DEVICE.stats)
+    for s in (_DEVICE, _FUSED, _BRIDGE, _SUPPORT, _LADDER):
+        if s is not None:
+            d.update(s.stats)
     if _FUSED is not None:
-        d.update(_FUSED.stats)
         d["fused_trust"] = bool(_FUSED_TRUST)
         d["fused_agree"] = int(native_core.fused_stats[0])
         d["fused_total"] = int(native_core.fused_stats[1])
+    if _LADDER is not None:
+        d["ladder_trust"] = bool(_LADDER_TRUST)
+        d["ladder_agree"] = int(native_core.ladder_stats[0])
+        d["ladder_total"] = int(native_core.ladder_stats[1])
     return d
 
 
@@ -159,11 +260,19 @@ def assemble_groups(asms, gvs, cfg):
         dev, export = _get_device(), native_core.greedy_export
     else:
         dev, export = _get_fused_device(), native_core.greedy_export_fused
+    bridge_dev = bridge_enabled(cfg)
+    bdev = _get_bridge_device() if bridge_dev else None
+    support_dev = support_enabled(cfg)
+    sdev = _get_support_device() if support_dev else None
+    ladder_dev = ladder_enabled(cfg)
+    ldev = _get_ladder_device() if ladder_dev else None
     minv = int(getattr(cfg, "device_min_vertices", 16))
     runs = []               # (asmb, gv, handle-or-None) in group order
     active = []
     for asmb, gv in zip(asms, gvs):
-        gh = native_core.start_group_device(asmb, gv, True, minv)
+        gh = native_core.start_group_device(asmb, gv, True, minv,
+                                            bridge_dev, support_dev,
+                                            ladder_dev)
         runs.append((asmb, gv, gh))
         if gh is not None and gh.paused:
             active.append(gh)
@@ -171,42 +280,144 @@ def assemble_groups(asms, gvs, cfg):
 
     while active:
         nxt = []
-        exp = []            # handles with exported rows
+        g_exp = []          # greedy-paused handles with exported rows
+        s_exp = []          # support-paused handles with exported rows
+        l_exp = []          # ladder-paused handles with exported rows
 
-        def flush():
-            if not exp:
+        def flush_ladder():
+            if not l_exp:
+                return
+            larm, ltgt, ndec, lstatus = ldev.solve(len(l_exp))
+            for i, g in enumerate(l_exp):
+                stats["device_ladder_graphs"] += 1
+                if native_core.ladder_consume(
+                        g, larm[i], ltgt[i], int(ndec[i]),
+                        int(lstatus[i]), _LADDER_TRUST):
+                    nxt.append(g)
+            del l_exp[:]
+
+        def flush_greedy():
+            if not g_exp:
                 return
             if step:
-                tables = dev.solve(len(exp))
-                for i, g in enumerate(exp):
+                tables = dev.solve(len(g_exp))
+                for i, g in enumerate(g_exp):
                     stats["device_steps"] += 1
                     if native_core.greedy_step(g, tables[i]):
                         nxt.append(g)
             else:
-                paths, ws, npaths = dev.solve(len(exp))
-                for i, g in enumerate(exp):
+                paths, ws, npaths = dev.solve(len(g_exp))
+                for i, g in enumerate(g_exp):
                     if _FUSED_TRUST:
                         stats["device_steps"] += int(npaths[i])
                     if native_core.greedy_consume_fused(
                             g, ws[i], paths[i], int(npaths[i]), dev.maxv,
                             _FUSED_TRUST):
                         nxt.append(g)
-            del exp[:]
+            del g_exp[:]
+
+        b_results = []      # per exported instance: (ostk, par, pix)
+        b_cur = []          # result slots filled in the current dispatch
+        b_feed = []         # (handle, plan); plan entry = slot id or -1
+
+        def flush_bridge_rows():
+            if not b_cur:
+                return
+            ostk, par, pix = bdev.solve(len(b_cur))
+            for i, sl in enumerate(b_cur):
+                b_results[sl] = (ostk[i], par[i], pix[i])
+            del b_cur[:]
+
+        def feed_bridges():
+            # feed every queued instance back in flattened queue order
+            # (the native consume order; see core.cpp bridge_export_at)
+            flush_bridge_rows()
+            for g, plan in b_feed:
+                kind = g.pause_kind
+                for sl in plan:
+                    if sl >= 0:
+                        ostk, par, pix = b_results[sl]
+                        stats["device_bridge_insts"] += 1
+                        kind = native_core.bridge_step(g, ostk, par, pix,
+                                                       K, S)
+                    else:
+                        stats["host_bridge_insts"] += 1
+                        kind = native_core.bridge_solve_host(g)
+                if kind:
+                    nxt.append(g)
+            del b_feed[:]
+            del b_results[:]
+
+        def flush_support():
+            if not s_exp:
+                return
+            sums = sdev.solve(len(s_exp))
+            for i, g in enumerate(s_exp):
+                stats["device_support_groups"] += 1
+                if native_core.support_step(g, sums[i]):
+                    nxt.append(g)
+            del s_exp[:]
 
         for gh in active:
+            if gh.pause_kind == 4:
+                v = native_core.ladder_export(
+                    gh, ldev.row(len(l_exp)), ldev.maxv, ldev.maxe,
+                    ldev.maxh, ldev.maxl, ldev.dmax) if ladder_dev else 0
+                if v <= 0:
+                    stats["host_ladder_graphs"] += 1
+                    if native_core.ladder_solve_host(gh):
+                        nxt.append(gh)
+                    continue
+                l_exp.append(gh)
+                if len(l_exp) == ldev.batch:
+                    flush_ladder()
+                continue
+            if gh.pause_kind == 3:
+                v = native_core.support_export(
+                    gh, sdev.row(len(s_exp))) if support_dev else 0
+                if v <= 0:
+                    stats["host_support_groups"] += 1
+                    if native_core.support_solve_host(gh):
+                        nxt.append(gh)
+                    continue
+                s_exp.append(gh)
+                if len(s_exp) == sdev.batch:
+                    flush_support()
+                continue
+            if gh.pause_kind == 2:
+                # one pause covers the whole bridging phase: export every
+                # queued pier-DP instance now, feed them all after the
+                # batched dispatch(es)
+                plan = []
+                for j in range(native_core.bridge_pending(gh)):
+                    v = native_core.bridge_export_at(
+                        gh, j, bdev.row(len(b_cur)), K, S) \
+                        if bridge_dev else 0
+                    if v > 0:
+                        plan.append(len(b_results))
+                        b_cur.append(len(b_results))
+                        b_results.append(None)
+                        if len(b_cur) == bdev.batch:
+                            flush_bridge_rows()
+                    else:
+                        plan.append(-1)
+                b_feed.append((gh, plan))
+                continue
             if gh.pause_kind != 1:
-                raise RuntimeError("unexpected native pause kind %d: only "
-                                   "the greedy decomposition pauses in the "
-                                   "port" % gh.pause_kind)
-            if export(gh, dev.row(len(exp)), dev.maxv) <= 0:
+                raise RuntimeError("unexpected native pause kind %d"
+                                   % gh.pause_kind)
+            if export(gh, dev.row(len(g_exp)), dev.maxv) <= 0:
                 stats["host_graphs"] += 1
                 if native_core.greedy_solve_host(gh):
                     nxt.append(gh)
                 continue
-            exp.append(gh)
-            if len(exp) == dev.batch:
-                flush()
-        flush()
+            g_exp.append(gh)
+            if len(g_exp) == dev.batch:
+                flush_greedy()
+        flush_greedy()
+        feed_bridges()
+        flush_support()
+        flush_ladder()
         active = nxt
 
     # replay in group order (determinism), host path where ineligible

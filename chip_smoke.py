@@ -29,12 +29,27 @@ Phases, each of which exits non-zero on failure:
    ignore), and the edge cases; its own path, bottleneck_from_source(
    version=1 and 2), driven with every launch count reset; then its times
    and bound, measured as the drain's;
+2c. the three XLA programs of the reference that the port runs as plain
+   PyTorch, on the card against their oracles at the production shapes,
+   exactly: the bridge top-K DP (random DAG windows and a tie-heavy batch,
+   1 and 64 rows) against its numpy oracle and the same function on the
+   host CPU; the support reduce against its numpy oracle; the resolution
+   ladder on seeded states (ops/ladder_kernel.py::fuzz_states, at the CPU
+   tests' small shape and at the production shape) against the dense
+   reference machine (ops/ladder_ref.py) decision for decision and against
+   the same function on the host CPU in every output, ewrt on int64
+   views; then the bridge and ladder solvers, which replay recorded CUDA
+   graphs on the card, against the same results.  For each form: the host
+   clock of a dispatch, and over one dispatch under the profiler its
+   device time and number of device kernels, for the bridge and the
+   ladder both replayed and with every operation launched as it comes;
+   for the ladder also its iterations a dispatch;
 3. main path: the production cohort (2000 genes x 10 paired-end samples,
    tools/refbuild/baseline.py) through python -m aletsch_tpu with the
    device off (the reference bytes) and through the port's CLI with the
    drain forced onto the card at --max_num_exons 8.  Both CLIs run as
-   subprocesses, reference / port / port / reference, for comparable
-   walls; then the port runs once more in this process under the
+   subprocesses, reference / port / reference, for comparable walls;
+   then the port runs once more in this process under the
    profiler, with every launch count reset just before it.  Every
    output file of every port run must be byte-identical to the
    reference's, and the kernel must have carried the drain.  The
@@ -43,7 +58,19 @@ Phases, each of which exits non-zero on failure:
    (one bottleneck launch per extraction instead of the drain), as a
    subprocess and then in this process under the profiler with the
    counts reset; every output file byte-identical to the reference's, and
-   the bottleneck kernel must have carried every dispatch.
+   the bottleneck kernel must have carried every dispatch;
+3c. the bridge, support and ladder stages on the card (--device_bridge on
+   --device_support on --device_ladder on beside the forced drain): as a
+   subprocess for its wall, in this process with every count reset
+   (trust mode), and once more in verify mode (ALETSCH_FUSED_TRUST=0: the
+   host ladder and drain are authoritative and every device decision is
+   compared with the host's).  Every output file byte-identical to the
+   reference's, every stage engaged, ladder_agree == ladder_total and
+   fused_agree == fused_total, and the drain kernel launched on this path
+   too.  The ladder's host clock is projected from phase 2c first; where
+   the production cohort would take too long, the bridge and support
+   stages run on it and the ladder runs (with them) on the largest smaller
+   cohort that fits, and the script prints which and why.
 
 The last lines are the card (nvidia-smi), one JSON line of the kernels
 and the JSON result line.  In the kernels line, "launches" counts each
@@ -60,7 +87,7 @@ and its min/max/compare/select operations over the card's rate for them,
 both counted from this run's sinks and path counts.
 "library_ms" is null: no single PyTorch call computes a max-min chain in
 topological order with the drain's tie rule.  With --kernels-only the
-script stops after phase 2b, prints no result line and exits 0: a short
+script stops after phase 2c, prints no result line and exits 0: a short
 first check of a changed kernel, and a way to time two checkouts in turns
 on one card.  This script imports only the port; the JAX package runs
 as a subprocess.  jax and aletsch_tpu are made unimportable first: the port
@@ -86,6 +113,16 @@ HOST_ARGS = ["--device_greedy", "off", "--max_num_exons", "8",
 DEVICE_ARGS = ["--device_greedy", "on", "--device_min_vertices", "2",
                "--device_min_groups", "0", "--max_num_exons", "8",
                "--verbose", "0"]
+BRIDGE_SUPPORT_ARGS = ["--device_bridge", "on", "--device_support", "on"]
+LADDER_ARGS = ["--device_ladder", "on"]
+# Phase 3c: the seconds its two in-process ladder runs may take together,
+# the cohorts to choose from, and what the ladder needs of a cohort: its
+# lockstep iterations a gene (counted by DeviceLadder on the 200-gene
+# cohort with the flags above; a count of the data, the same on any
+# device).
+LADDER_BUDGET_S = 240.0
+LADDER_GENES = (2000, 1000, 500, 200)
+LADDER_ITERATIONS_PER_GENE = 88.1
 SPIN_CYCLES = 10_000_000        # ~5 ms of GPU clock: longer than any enqueue
 REPS = 25
 # Published peaks of one H100 SXM at its full power limit.  The 67 TFLOP/s
@@ -532,6 +569,243 @@ def bottleneck_vs_plain(dev):
     return err, pos_launches, times
 
 
+# ------------------------------------------------------------ phase 2c
+def _host_ms(fn, reps):
+    """Median host clock of fn(), which ends with its results on the host."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _dispatch_profile(fn):
+    """(device ms, device kernels and copies) of one call of fn(), as the
+    profiler (CUPTI) records them; (None, 0) when it records nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = _profile_rows(prof)
+    n = sum(c for c, _ in rows.values())
+    return (sum(t for _, t in rows.values()) / 1000.0 if n else None), n
+
+
+def _form_times(tag, solve, sizes, reps, extra=lambda n: ""):
+    """Time one solver's dispatch at each size: host clock, device time and
+    device kernels.  Returns {n: {...}}."""
+    out = {}
+    for n in sizes:
+        t = {"host_ms": _host_ms(lambda: solve(n), reps)}
+        t["device_ms"], t["kernels"] = _dispatch_profile(lambda: solve(n))
+        out[n] = t
+        log("%s nrows=%d: host clock %.3f ms a dispatch (median of %d); "
+            "device time %s over %d device kernels and copies a dispatch "
+            "(profiler)%s"
+            % (tag, n, t["host_ms"], reps, "%.3f ms" % t["device_ms"]
+               if t["device_ms"] is not None else "not measured",
+               t["kernels"], extra(n)))
+    return out
+
+
+def _stage_ladder(solver, arr, n):
+    """Write the first n packed ladder states into a DeviceLadder's staging
+    rows, as the native export lays them out."""
+    for name in ("esrc", "edst", "ewrt", "estr", "esin", "esout", "ealive",
+                 "nz", "hedge", "hlen"):
+        getattr(solver, name)[:n] = arr[name][:n]
+    for col, name in enumerate(("nedges", "nstamp", "nv")):
+        solver.meta3[:n, col] = arr[name][:n]
+    for col, name in enumerate(("jump", "smallr", "guard", "smin")):
+        solver.scal[:n, col] = arr[name][:n]
+
+
+def _check_ladder(tag, seeds, shape, dev):
+    """The ladder on the card against the reference machine and the same
+    function on the host CPU, on every seeded state that fits the shape.
+    Returns (states compared, decisions compared, packed arrays, the
+    card's results)."""
+    import numpy as np
+
+    from aletsch_tpu_torch.ops import ladder_kernel as LK
+    from aletsch_tpu_torch.ops import ladder_ref
+    refs, states = LK.fuzz_states(seeds, shape["V"], shape["E"], shape["H"],
+                                  shape["L"])
+    n = len(states)
+    arr = LK.pack_states(states, n, shape["V"], shape["E"], shape["H"],
+                         shape["L"])
+    kw = {"DMAX": shape["DMAX"], "DLOG": shape["DLOG"]}
+    card = [t.cpu().numpy() for t in
+            LK.ladder(*LK.batch_from_numpy(arr, dev), **kw)]
+    host = [t.numpy() for t in
+            LK.ladder(*LK.batch_from_numpy(arr, "cpu"), **kw)]
+    names = ("larm", "ltgt", "ndec", "status", "ewrt", "ealive", "esrc",
+             "edst", "estr", "nedges", "hedge", "hlen", "nz")
+    for name, c, h in zip(names, card, host):
+        require(c.dtype == h.dtype and c.shape == h.shape
+                and np.array_equal(_bits(c) if c.dtype == np.float64 else c,
+                                   _bits(h) if h.dtype == np.float64 else h),
+                "%s ladder: %s on the card differs from the host CPU's"
+                % (tag, name))
+    larm, ltgt, ndec, status = card[:4]
+    decisions = compared = 0
+    for b, ref in enumerate(refs):
+        dec, st = ladder_ref.run_ladder(ref, max_decisions=shape["DLOG"])
+        if st != ladder_ref.ST_CLEAN or status[b] != 0:
+            # an overflow makes the host redo the whole ladder: the card
+            # must report one wherever the reference machine does
+            require(status[b] != 0 or st == ladder_ref.ST_CLEAN,
+                    "%s ladder: state %d overflows in the reference "
+                    "machine only" % (tag, b))
+            continue
+        got = [(int(larm[b, i]), int(ltgt[b, i]))
+               for i in range(int(ndec[b]))]
+        require(got == dec, "%s ladder: state %d decides %s, the reference "
+                "machine %s" % (tag, b, got[:6], dec[:6]))
+        compared += 1
+        decisions += len(dec)
+    return compared, decisions, arr, card
+
+
+def torch_forms_vs_oracles(dev):
+    """Phase 2c.  Returns {form: {nrows: times}}."""
+    import numpy as np
+    import torch
+
+    from aletsch_tpu_torch.ops import bridge_topk as BT
+    from aletsch_tpu_torch.ops import ladder_kernel as LK
+    from aletsch_tpu_torch.ops import support as SP
+    from aletsch_tpu_torch.ops.ladder_device import DeviceLadder
+    res = {}
+
+    # bridge top-K
+    rng = np.random.default_rng(41)
+    batches = {"random": BT.fuzz_batch(rng, 64),
+               "tie-heavy": BT.fuzz_batch(rng, 64, ties=True)}
+    names = ("ostk", "par", "pix")
+    for tag, batch in batches.items():
+        for n in (1, 64):
+            sub = [a[:n] for a in batch]
+            card = [t.cpu().numpy() for t in
+                    BT.bridge_dp(*BT.batch_from_numpy(*sub, dev))]
+            host = [t.numpy() for t in
+                    BT.bridge_dp(*BT.batch_from_numpy(*sub, "cpu"))]
+            oracle = BT.bridge_dp_host(*sub)
+            for name, c, h, o in zip(names, card, host, oracle):
+                require(c.dtype == np.int32 and np.array_equal(c, o),
+                        "bridge %s nrows=%d: %s on the card differs from "
+                        "the numpy oracle" % (tag, n, name))
+                require(np.array_equal(c, h), "bridge %s nrows=%d: %s on the "
+                        "card differs from the host CPU's" % (tag, n, name))
+            if tag == "tie-heavy" and n == 64:
+                ostk = card[0]
+                tied = int(((ostk[:, :, 0] == ostk[:, :, 1]).all(axis=-1)
+                            & (ostk[:, :, 0, 0] >= 0)).sum())
+                require(tied > 0, "the tie-heavy bridge batch has no ties")
+                log("bridge tie-heavy batch: %d of %d targets keep two "
+                    "entries with equal stacks, separated by candidate "
+                    "order only" % (tied, int((sub[3] >= 0).sum())))
+    log("bridge top-K on the card == numpy oracle == the host CPU's, "
+        "element for element, on a random and a tie-heavy batch at "
+        "V=%d E=%d T=%d, 1 and 64 rows" % (BT.DEFAULT_V, BT.DEFAULT_E,
+                                           BT.DEFAULT_T))
+    # the solver replays a CUDA graph: 5 live rows in a recorded batch of
+    # 8, stale rows behind them
+    want = BT.bridge_dp_host(*(a[:5] for a in batches["tie-heavy"]))
+    bdev = BT.DeviceBridge(device=dev)
+    for stage, a in zip((bdev.P, bdev.Wt, bdev.Lv, bdev.tgt),
+                        batches["tie-heavy"]):
+        stage[...] = a
+    for name, g, w in zip(names, bdev.solve(5), want):
+        require(g.dtype == np.int32 and g.flags["C_CONTIGUOUS"]
+                and np.array_equal(g, w), "bridge solve(5): %s differs from "
+                "the numpy oracle" % name)
+    on_card = BT.batch_from_numpy(*batches["tie-heavy"], dev)
+    res["bridge_eager"] = _form_times(
+        "bridge_dp, every operation launched as it comes,",
+        lambda n: [t.cpu() for t in BT.bridge_dp(*(a[:n] for a in on_card))],
+        (1, 64), 5)
+    res["bridge"] = _form_times("bridge solve(), replayed graph,",
+                                bdev.solve, (1, 64), 5)
+
+    # support reduce
+    sdev = SP.DeviceSupport(device=dev)
+    jw = np.random.default_rng(42).integers(
+        0, 1000, size=sdev.jw.shape).astype(np.float32)
+    for n in (1, 64):
+        card = SP.support_sum(torch.from_numpy(jw[:n]).to(dev)).cpu().numpy()
+        require(card.dtype == np.float32
+                and np.array_equal(card, SP.support_sum_host(jw[:n])),
+                "support nrows=%d: the card's sums differ from the numpy "
+                "oracle's" % n)
+    log("support reduce on the card == numpy oracle, exactly, [n, %d, %d] "
+        "at 1 and 64 rows" % jw.shape[1:])
+    sdev.jw[...] = jw
+    res["support"] = _form_times("support solve()", sdev.solve, (1, 64), 25)
+
+    # ladder
+    small = dict(V=24, E=96, H=16, L=16, DMAX=12, DLOG=64)
+    full = dict(V=LK.DEFAULT_V, E=LK.DEFAULT_E, H=LK.DEFAULT_H,
+                L=LK.DEFAULT_L, DMAX=LK.DEFAULT_DMAX, DLOG=LK.DEFAULT_DLOG)
+    n_small, d_small, _, _ = _check_ladder("small-shape", range(100), small,
+                                           dev)
+    n_full, d_full, arr, card = _check_ladder("production-shape", range(70),
+                                              full, dev)
+    require(n_small >= 40 and n_full >= 40, "too few ladder states compared "
+            "(%d and %d)" % (n_small, n_full))
+    log("ladder on the card == reference machine (logs, ndec, status) == the "
+        "host CPU's (every output, ewrt on int64 views): %d states, %d "
+        "decisions at V=24 E=96; %d states, %d decisions at the production "
+        "shape V=%d E=%d H=%d L=%d DMAX=%d DLOG=%d"
+        % (n_small, d_small, n_full, d_full, full["V"], full["E"], full["H"],
+           full["L"], full["DMAX"], full["DLOG"]))
+    ldev = DeviceLadder(device=dev)
+    n_states = min(len(arr["nv"]), ldev.batch)
+    _stage_ladder(ldev, arr, n_states)
+    # the solver replays CUDA graphs: every state at once (a recorded batch
+    # of 64, the rows behind the live ones switched off) equals the card's
+    # run above
+    for name, g, w in zip(("larm", "ltgt", "ndec", "status"),
+                          ldev.solve(n_states), card):
+        require(g.dtype == np.int32 and g.flags["C_CONTIGUOUS"]
+                and np.array_equal(g, w[:n_states]), "ladder solve(%d): %s "
+                "differs from ladder()'s" % (n_states, name))
+    on_card = LK.batch_from_numpy(arr, dev)
+    counters = {}
+    iters = {}
+
+    def eager(n):
+        it0 = counters.get("ladder_iterations", 0)
+        out = LK.ladder(*(a[:n] for a in on_card), counters=counters)
+        [t.cpu() for t in out[:4]]
+        iters[n] = counters["ladder_iterations"] - it0
+
+    def replay(n):
+        it0 = ldev.stats["ladder_iterations"]
+        ldev.solve(n)
+        iters[n] = ldev.stats["ladder_iterations"] - it0
+
+    for key, mode, solve in (
+            ("ladder_eager", "ladder(), every operation launched as it comes,",
+             eager), ("ladder", "ladder solve(), replayed graphs,", replay)):
+        times = _form_times(mode, solve, (1, 3, n_states), 3,
+                            lambda n: "; %d iterations a dispatch" % iters[n])
+        for n, t in times.items():
+            t["iterations"] = iters[n]
+            log("%s nrows=%d: %.3f ms of host clock, %s of device time and "
+                "%.0f device kernels an iteration"
+                % (mode.split(",")[0], n, t["host_ms"] / iters[n],
+                   "%.3f ms" % (t["device_ms"] / iters[n])
+                   if t["device_ms"] is not None else "not measured",
+                   t["kernels"] / iters[n]))
+        res[key] = times
+    return res
+
+
 # ------------------------------------------------------------ phase 3
 def _outputs(out):
     files = {"meta.gtf": os.path.join(out, "meta.gtf")}
@@ -558,10 +832,33 @@ def _subprocess_wall(module, lst, out, extra, env):
     return time.perf_counter() - t0
 
 
-def main_path(genes=GENES, samples=SAMPLES):
+def _build_cohort(base, genes, samples, env):
+    """(bams.list, read pairs) of a simulated cohort under `base`."""
+    t0 = time.perf_counter()
+    made = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; from tools.refbuild.baseline import build_cohort; "
+         "print(*build_cohort(sys.argv[1], int(sys.argv[2]), "
+         "int(sys.argv[3])))", base, str(genes), str(samples)],
+        cwd=REPO, env=env, check=True, timeout=600, capture_output=True,
+        text=True).stdout.strip().splitlines()[-1].split()
+    log("cohort %d genes x %d samples, %d read pairs (%.1f s)"
+        % (genes, samples, int(made[1]), time.perf_counter() - t0))
+    return made[0]
+
+
+def _require_same(got, ref, what):
+    require(sorted(got) == sorted(ref), "output file sets differ: %s vs %s"
+            % (sorted(got), sorted(ref)))
+    for name in ref:
+        require(got[name] == ref[name], "%s of %s differs from the "
+                "reference's" % (name, what))
+
+
+def main_path(forms, genes=GENES, samples=SAMPLES):
     """Reference and port CLIs on the production cohort.  Returns a dict
     of walls, the profiled run's device stats, launch count and device
-    rows."""
+    rows, and the step path's and the new path's results."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -570,22 +867,11 @@ def main_path(genes=GENES, samples=SAMPLES):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = {}
     with tempfile.TemporaryDirectory(prefix="aletsch_chip_smoke_") as tmp:
-        t0 = time.perf_counter()
-        made = subprocess.run(
-            [sys.executable, "-c",
-             "import sys; from tools.refbuild.baseline import build_cohort; "
-             "print(*build_cohort(sys.argv[1], int(sys.argv[2]), "
-             "int(sys.argv[3])))",
-             os.path.join(tmp, "cohort"), str(genes), str(samples)],
-            cwd=REPO, env=env, check=True, timeout=600, capture_output=True,
-            text=True).stdout.strip().splitlines()[-1].split()
-        lst, nrec = made[0], int(made[1])
-        log("cohort %d genes x %d samples, %d read pairs (%.1f s)"
-            % (genes, samples, nrec, time.perf_counter() - t0))
+        lst = _build_cohort(os.path.join(tmp, "cohort"), genes, samples, env)
 
         walls = {"reference": [], "port": []}
         ref = None
-        for i, side in enumerate(("reference", "port", "port", "reference")):
+        for i, side in enumerate(("reference", "port", "reference")):
             out = os.path.join(tmp, "%s%d" % (side, i))
             if side == "reference":
                 walls[side].append(_subprocess_wall(
@@ -597,11 +883,7 @@ def main_path(genes=GENES, samples=SAMPLES):
             got = _outputs(out)
             if ref is None:
                 ref = got
-            require(sorted(got) == sorted(ref), "output file sets differ: "
-                    "%s vs %s" % (sorted(got), sorted(ref)))
-            for name in ref:
-                require(got[name] == ref[name], "%s of %s run %d differs "
-                        "from the reference's" % (name, side, i))
+            _require_same(got, ref, "%s run %d" % (side, i))
         log("subprocess walls (s): reference %s, port %s; every output "
             "byte-identical (%d files, meta.gtf %d bytes)"
             % (walls["reference"], walls["port"], len(ref),
@@ -619,15 +901,13 @@ def main_path(genes=GENES, samples=SAMPLES):
         require(n["bottleneck"] == 0, "the fused path launched the "
                 "bottleneck kernel %d times" % n["bottleneck"])
         res["launches"] = n["drain"]
-        got = _outputs(out)
-        require(sorted(got) == sorted(ref) and all(
-            got[n] == ref[n] for n in ref),
-            "the profiled port run's outputs differ from the reference's")
+        _require_same(_outputs(out), ref, "the profiled port run")
         res["stats"] = device_wave.device_stats()
         res["rows"] = _profile_rows(prof)
         print(prof.key_averages().table(sort_by="self_device_time_total",
                                         row_limit=12), flush=True)
         res["step"] = step_path(tmp, lst, ref, env)
+        res["new"] = new_path(tmp, lst, ref, env, forms, genes, samples)
     res["walls"] = walls
     return res
 
@@ -645,10 +925,7 @@ def step_path(tmp, lst, ref, env):
     res["wall"] = _subprocess_wall(
         "aletsch_tpu_torch", lst, out, DEVICE_ARGS,
         dict(env, ALETSCH_TORCH_DEVICE="cuda", ALETSCH_DEVICE_GREEDY="step"))
-    got = _outputs(out)
-    require(sorted(got) == sorted(ref) and all(
-        got[n] == ref[n] for n in ref),
-        "the step-mode port run's outputs differ from the reference's")
+    _require_same(_outputs(out), ref, "the step-mode port run")
     log("step mode subprocess wall %.2f s; every output byte-identical "
         "(%d files)" % (res["wall"], len(ref)))
 
@@ -670,14 +947,140 @@ def step_path(tmp, lst, ref, env):
     require(n["drain"] == 0, "the step path launched the drain kernel %d "
             "times" % n["drain"])
     res["launches"] = n["bottleneck"]
-    got = _outputs(out)
-    require(sorted(got) == sorted(ref) and all(
-        got[f] == ref[f] for f in ref),
-        "the profiled step-mode run's outputs differ from the reference's")
+    _require_same(_outputs(out), ref, "the profiled step-mode run")
     res["stats"] = device_wave.device_stats()
     res["rows"] = _profile_rows(prof)
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=12), flush=True)
+    return res
+
+
+# ------------------------------------------------------------ phase 3c
+def _in_process_run(lst, out, extra, trust):
+    """The port's CLI in this process with every solver, count and
+    agreement counter reset just before it.  trust=False runs verify mode
+    (ALETSCH_FUSED_TRUST=0).  Returns (wall, device stats, launches)."""
+    import torch
+
+    from aletsch_tpu_torch import __main__ as port_main
+    from aletsch_tpu_torch.meta import device_wave, native_core
+    args = ["-i", lst, *_cli_args(out), *DEVICE_ARGS, *extra]
+    if not trust:
+        os.environ["ALETSCH_FUSED_TRUST"] = "0"
+    try:
+        device_wave.reset_solvers()
+        for k in device_wave.stats:
+            device_wave.stats[k] = 0
+        native_core.fused_stats[:] = 0
+        native_core.ladder_stats[:] = 0
+        _reset_launches()
+        t0 = time.perf_counter()
+        require(port_main.main(args) == 0, "port CLI failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return wall, device_wave.device_stats(), _launches()
+    finally:
+        os.environ.pop("ALETSCH_FUSED_TRUST", None)
+
+
+def _check_new_path(tag, st, n, stages, trust):
+    """The engagement and agreement checks of one in-process run of the
+    new path."""
+    require(n["bottleneck"] == 0, "%s launched the bottleneck kernel" % tag)
+    require(st.get("fused_graphs", 0) > 0, "%s: the drain never engaged" % tag)
+    require(n["drain"] >= st["fused_dispatches"] > 0,
+            "%s: drain launches %d < dispatches %d"
+            % (tag, n["drain"], st["fused_dispatches"]))
+    require(st["fused_trust"] is trust, "%s: fused_trust is %s"
+            % (tag, st["fused_trust"]))
+    require(st["fused_agree"] == st["fused_total"] > 0,
+            "%s: device paths disagree with the host drain (%d of %d)"
+            % (tag, st["fused_agree"], st["fused_total"]))
+    keys = {"bridge": ("device_bridge_insts", "bridge_dispatches"),
+            "support": ("device_support_groups", "support_dispatches"),
+            "ladder": ("device_ladder_graphs", "ladder_dispatches",
+                       "ladder_decisions", "ladder_iterations")}
+    for stage in stages:
+        for k in keys[stage]:
+            require(st.get(k, 0) > 0, "%s: %s is %s: the %s stage never "
+                    "engaged" % (tag, k, st.get(k), stage))
+    if "ladder" in stages:
+        require(st["ladder_trust"] is trust, "%s: ladder_trust is %s"
+                % (tag, st["ladder_trust"]))
+        require(st["ladder_agree"] == st["ladder_total"] > 0,
+                "%s: the card's ladder decisions disagree with the host's "
+                "(%d of %d)" % (tag, st["ladder_agree"], st["ladder_total"]))
+
+
+def new_path(tmp, lst, ref, env, forms, genes, samples):
+    """Phase 3c: the bridge, support and ladder stages through the port's
+    CLI on the card."""
+    ms_iter = forms["ladder"][3]["host_ms"] / forms["ladder"][3]["iterations"]
+    # what two in-process ladder runs (trust and verify) would take
+    projected = {g: 2 * LADDER_ITERATIONS_PER_GENE * g * ms_iter / 1e3
+                 for g in LADDER_GENES if g <= genes}
+    fits = [g for g in sorted(projected, reverse=True)
+            if projected[g] <= LADDER_BUDGET_S]
+    ladder_genes = fits[0] if fits else min(projected)
+    log("ladder projection: %.3f ms of host clock an iteration (phase 2c, "
+        "three rows) x %.1f iterations a gene x 2 runs = %s s for %s genes; "
+        "budget %.0f s: the ladder runs on %d genes%s"
+        % (ms_iter, LADDER_ITERATIONS_PER_GENE,
+           " / ".join("%.0f" % projected[g] for g in sorted(projected)),
+           " / ".join(str(g) for g in sorted(projected)), LADDER_BUDGET_S,
+           ladder_genes, "" if fits else " (none fits; the smallest is run)"))
+    res = {"ladder_genes": ladder_genes, "ms_iter": ms_iter,
+           "projected": projected}
+    full = ladder_genes == genes
+    extra = BRIDGE_SUPPORT_ARGS + (LADDER_ARGS if full else [])
+    stages = ("bridge", "support") + (("ladder",) if full else ())
+
+    # the production cohort: subprocess for the wall, then in process
+    out = os.path.join(tmp, "new_subprocess")
+    res["wall"] = _subprocess_wall(
+        "aletsch_tpu_torch", lst, out, DEVICE_ARGS + extra,
+        dict(env, ALETSCH_TORCH_DEVICE="cuda"))
+    _require_same(_outputs(out), ref, "the new path's subprocess run")
+    log("new path (%s) on %d genes: subprocess wall %.2f s; every output "
+        "byte-identical (%d files)" % (" ".join(extra), genes, res["wall"],
+                                       len(ref)))
+    out = os.path.join(tmp, "new_in_process")
+    wall, st, n = _in_process_run(lst, out, extra, True)
+    _require_same(_outputs(out), ref, "the new path's in-process run")
+    _check_new_path("new path, %d genes" % genes, st, n, stages, True)
+    res["runs"] = [("%d genes, %s, trust" % (genes, "+".join(stages)),
+                    wall, st, n)]
+    if full:
+        out = os.path.join(tmp, "new_verify")
+        wall, st, n = _in_process_run(lst, out, extra, False)
+        _require_same(_outputs(out), ref, "the new path's verify-mode run")
+        _check_new_path("new path, verify mode", st, n, stages, False)
+        res["runs"].append(("%d genes, %s, verify" % (genes,
+                                                      "+".join(stages)),
+                            wall, st, n))
+        return res
+
+    # the ladder, with the other stages, on the smaller cohort
+    small = _build_cohort(os.path.join(tmp, "cohort_ladder"), ladder_genes,
+                          samples, env)
+    out = os.path.join(tmp, "ladder_reference")
+    res["ladder_reference_wall"] = _subprocess_wall(
+        "aletsch_tpu", small, out, HOST_ARGS, env)
+    small_ref = _outputs(out)
+    log("ladder cohort: reference subprocess wall %.2f s (%d files)"
+        % (res["ladder_reference_wall"], len(small_ref)))
+    extra = BRIDGE_SUPPORT_ARGS + LADDER_ARGS
+    stages = ("bridge", "support", "ladder")
+    for trust in (True, False):
+        mode = "trust" if trust else "verify"
+        out = os.path.join(tmp, "ladder_" + mode)
+        wall, st, n = _in_process_run(small, out, extra, trust)
+        _require_same(_outputs(out), small_ref,
+                      "the ladder's %s-mode run" % mode)
+        _check_new_path("ladder cohort, %s mode" % mode, st, n, stages, trust)
+        res["runs"].append(("%d genes, %s, %s" % (ladder_genes,
+                                                  "+".join(stages), mode),
+                            wall, st, n))
     return res
 
 
@@ -704,10 +1107,11 @@ def main(argv=None):
         smi, name = environment()
         err, times = kernel_vs_plain(dev)
         bn_err, pos_launches, bn_times = bottleneck_vs_plain(dev)
+        forms = torch_forms_vs_oracles(dev)
         if kernels_only:
             log("--kernels-only: stopping before the main path")
             return 0
-        res = main_path()
+        res = main_path(forms)
         st, launches, rows = res["stats"], res["launches"], res["rows"]
         log("device stats: %s" % json.dumps(st, sort_keys=True))
         require(st.get("fused_graphs", 0) > 0, "the drain never engaged")
@@ -753,6 +1157,29 @@ def main(argv=None):
                sst["host_graphs"], "%.2f ms" % (bn_us / 1000.0) if n_bn
                else "not measured", n_bn, busy_us / 1000.0,
                1.0 - busy_us / 1e6 / wall, sst["device_time"]))
+        new = res["new"]
+        for tag, wall, nst, n in new["runs"]:
+            log("new path run (%s) on %s: wall %.2f s; drain launches %d; "
+                "device stats: %s" % (tag, name, wall, n["drain"],
+                                      json.dumps(nst, sort_keys=True)))
+            for form, unit in (("bridge", "instances"), ("support", "groups"),
+                               ("ladder", "graphs")):
+                d = nst.get(form + "_dispatches", 0)
+                if d:
+                    secs = nst[form + "_device_time"]
+                    log("  %s: %d dispatches, %.2f %s a dispatch, solve() "
+                        "host clock %.3f s (%.3f ms a dispatch, %.1f %% of "
+                        "the wall)%s"
+                        % (form, d, nst["%s_%s" % (form, unit)] / d, unit,
+                           secs, secs / d * 1e3, 100.0 * secs / wall,
+                           "; %d iterations, %.1f a dispatch, %.3f ms each; "
+                           "%d decisions, agree %d of %d"
+                           % (nst["ladder_iterations"],
+                              nst["ladder_iterations"] / d,
+                              secs / nst["ladder_iterations"] * 1e3,
+                              nst["ladder_decisions"], nst["ladder_agree"],
+                              nst["ladder_total"])
+                           if form == "ladder" else ""))
     except SmokeFailure as e:
         print("chip_smoke: FAIL: %s" % e, file=sys.stderr)
         return 1

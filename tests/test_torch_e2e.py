@@ -1,10 +1,12 @@
 """The port's cohort CLI (python -m aletsch_tpu_torch) against the JAX
 package on the adversarial cohort of test_device_greedy_fused.py, with the
 greedy decomposition forced onto the device (the plain PyTorch versions on
-the CPU), fused and in step mode (ALETSCH_DEVICE_GREEDY=step): every
-output file byte-identical, the device engaged, trust and verify mode, the
-device gates, the refusals of what is not ported yet, and a run with jax
-and the JAX package both unimportable: the port owns every module it runs."""
+the CPU), fused and in step mode (ALETSCH_DEVICE_GREEDY=step), and with the
+bridge top-K DP, the support reduce and the resolution ladder forced on,
+each alone and all together: every output file byte-identical, the device
+engaged, trust and verify mode, the device gates, the refusals of what is
+not ported yet, and a run with jax and the JAX package both unimportable:
+the port owns every module it runs."""
 
 import os
 import re
@@ -12,6 +14,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from aletsch_tpu import __main__ as ref_main
 from aletsch_tpu.config import default_params
@@ -28,6 +31,16 @@ FORCED = ["--device_min_vertices", "2", "--device_min_groups", "0",
 needs_native = pytest.mark.skipif(
     os.environ.get("ALETSCH_NATIVE_CORE") == "0",
     reason="device path requires the native core")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are tiny: more threads only contend with the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -65,6 +78,52 @@ def _run(main, lst, out, greedy, extra=()):
 def reference_off(cohort, tmp_path_factory):
     return _run(ref_main.main, cohort, tmp_path_factory.mktemp("ref_off"),
                 "off")
+
+
+@pytest.fixture(scope="module")
+def support_cohort(tmp_path_factory):
+    """Two samples with shared loci coordinates, so that bundle_group
+    builds multi-sample groups and the support maps are non-trivial (the
+    cohort of test_device_support.py)."""
+    from aletsch_tpu.sim import simulate_sample
+    base = tmp_path_factory.mktemp("support_cohort")
+    lines = []
+    for i, seed in enumerate((41, 42)):
+        bam = str(base / ("s%d.bam" % i))
+        simulate_sample(bam, seed=seed)
+        lines.append("%s %s.bai paired_end\n" % (bam, bam))
+    lst = base / "bams.list"
+    lst.write_text("".join(lines))
+    return str(lst)
+
+
+# stage -> (CLI flag, the wave counter and the solver counters that must
+# grow when the stage engages)
+STAGES = {
+    "bridge": ("--device_bridge", "device_bridge_insts",
+               ("bridge_dispatches", "bridge_instances")),
+    "support": ("--device_support", "device_support_groups",
+                ("support_dispatches", "support_groups")),
+    "ladder": ("--device_ladder", "device_ladder_graphs",
+               ("ladder_dispatches", "ladder_graphs", "ladder_decisions",
+                "ladder_iterations")),
+}
+
+
+def _stage_flags(stages):
+    return [x for s in stages for x in (STAGES[s][0], "on")]
+
+
+def _assert_engaged(stages, st0, st):
+    for s in stages:
+        _, wave_key, solver_keys = STAGES[s]
+        for k in (wave_key, *solver_keys):
+            assert st[k] > st0.get(k, 0), "%s: %s never grew" % (s, k)
+    if "ladder" in stages:
+        assert st["ladder_trust"] is True
+        assert st["ladder_total"] > st0.get("ladder_total", 0)
+        assert st["ladder_agree"] - st0.get("ladder_agree", 0) == \
+            st["ladder_total"] - st0.get("ladder_total", 0)
 
 
 @needs_native
@@ -111,6 +170,86 @@ def test_port_verify_mode_parity(cohort, reference_off, tmp_path,
 
 
 @needs_native
+@pytest.mark.parametrize("stage", sorted(STAGES))
+def test_stage_alone_matches_reference(stage, cohort, reference_off,
+                                       support_cohort, tmp_path):
+    """One of --device_bridge / --device_support / --device_ladder forced
+    on with the greedy stage left off: the wave engages all the same (and
+    the drain with it), the bytes are the reference's host run's and its
+    own forced run's, and the stage consumed device results."""
+    lst, want = cohort, reference_off
+    if stage == "support":
+        lst = support_cohort
+        want = _run(ref_main.main, lst, tmp_path / "ref_off", "off")
+    flags = _stage_flags([stage])
+    ref_on = _run(ref_main.main, lst, tmp_path / "ref_on", "off", flags)
+    st0 = port_wave.device_stats()
+    port_on = _run(port_main.main, lst, tmp_path / "port_on", "off", flags)
+    assert len(want) > 1 and len(want["meta.gtf"]) > 0
+    assert port_on == want
+    assert port_on == ref_on
+    st = port_wave.device_stats()
+    _assert_engaged([stage], st0, st)
+    assert st["waves"] > st0["waves"], "a forced stage engages the wave"
+    if stage != "support":      # and the drain with it, where graphs pause
+        assert st["fused_graphs"] > st0.get("fused_graphs", 0)
+    for other in set(STAGES) - {stage}:
+        assert st[STAGES[other][1]] == st0[STAGES[other][1]]
+
+
+@needs_native
+def test_all_stages_together_match_reference(cohort, reference_off,
+                                             tmp_path):
+    flags = _stage_flags(sorted(STAGES))
+    ref_on = _run(ref_main.main, cohort, tmp_path / "ref_on", "on", flags)
+    st0 = port_wave.device_stats()
+    port_on = _run(port_main.main, cohort, tmp_path / "port_on", "on", flags)
+    assert port_on == reference_off
+    assert port_on == ref_on
+    st = port_wave.device_stats()
+    _assert_engaged(["bridge", "ladder"], st0, st)
+    assert st["fused_graphs"] > st0.get("fused_graphs", 0)
+    assert st["fused_agree"] - st0.get("fused_agree", 0) == \
+        st["fused_total"] - st0.get("fused_total", 0)
+    # amortization: the ladder batches graphs across the wave's groups
+    d = st["ladder_dispatches"] - st0.get("ladder_dispatches", 0)
+    g = st["ladder_graphs"] - st0.get("ladder_graphs", 0)
+    assert d <= g
+
+
+@needs_native
+def test_all_stages_support_cohort(support_cohort, tmp_path):
+    """All three stages and the drain on the cohort whose groups span both
+    samples: the support reduce engages beside the others."""
+    flags = _stage_flags(sorted(STAGES))
+    want = _run(ref_main.main, support_cohort, tmp_path / "ref_off", "off")
+    st0 = port_wave.device_stats()
+    got = _run(port_main.main, support_cohort, tmp_path / "port_on", "on",
+               flags)
+    assert got == want
+    st = port_wave.device_stats()
+    _assert_engaged(["support"], st0, st)
+
+
+@needs_native
+def test_ladder_verify_mode_parity(cohort, reference_off, tmp_path,
+                                   monkeypatch):
+    """Ladder verify mode (as on a device whose f64 is not IEEE-exact): the
+    host ladder is authoritative, the bytes are unchanged, and every device
+    decision agrees with the host's on this exact device."""
+    port_wave._get_ladder_device()
+    monkeypatch.setattr(port_wave, "_LADDER_TRUST", False)
+    agree0, total0 = map(int, native_core.ladder_stats)
+    got = _run(port_main.main, cohort, tmp_path / "v", "off",
+               _stage_flags(["ladder"]))
+    assert got == reference_off
+    assert port_wave.device_stats()["ladder_trust"] is False
+    agree, total = map(int, native_core.ladder_stats)
+    assert total > total0
+    assert agree - agree0 == total - total0
+
+
+@needs_native
 @pytest.mark.parametrize("pallas", [None, "1"])
 def test_step_mode_matches_reference(pallas, cohort, reference_off,
                                      tmp_path, monkeypatch):
@@ -147,10 +286,17 @@ def test_step_mode_matches_reference(pallas, cohort, reference_off,
 @pytest.mark.parametrize("greedy", [None, "step"])
 @pytest.mark.parametrize("env", [None, "0", "1"])
 @pytest.mark.parametrize("mode", ["off", "on", "auto"])
-def test_device_gates_agree(mode, env, greedy, monkeypatch):
+@pytest.mark.parametrize("stage,stage_mode", [
+    (None, None), ("bridge", "on"), ("bridge", "auto"), ("support", "on"),
+    ("support", "auto"), ("ladder", "off"), ("ladder", "on"),
+    ("ladder", "auto")])
+def test_device_gates_agree(mode, env, greedy, stage, stage_mode,
+                            monkeypatch):
     """Parity of the two device gates: the port's incubator launches a
     wave asynchronously on the host exactly where the JAX package's does
-    (on a CPU backend), for every greedy mode, fused and step."""
+    (on a CPU backend), for every greedy mode, fused and step, and for
+    every mode of the bridge, support and ladder stages (the first two
+    default to off in the gate, the ladder to auto)."""
     for var, val in (("ALETSCH_DEVICE", env),
                      ("ALETSCH_DEVICE_GREEDY", greedy)):
         if val is None:
@@ -160,13 +306,18 @@ def test_device_gates_agree(mode, env, greedy, monkeypatch):
     cfg = default_params()[0]
     cfg.device_greedy = mode
     cfg.device_min_groups = 0
+    for s in STAGES:
+        setattr(cfg, "device_" + s, stage_mode if s == stage else "off")
     for n_groups in (1, 64):
         assert port_wave.enabled(cfg, n_groups) == \
             ref_wave.enabled(cfg, n_groups)
+    for fn in ("bridge_enabled", "support_enabled", "ladder_enabled"):
+        assert getattr(port_wave, fn)(cfg) == getattr(ref_wave, fn)(cfg)
+    if stage_mode == "on" and env != "0":
+        assert port_wave.enabled(cfg, 1) is True
 
 
-@pytest.mark.parametrize("flag", ["--device_bridge", "--device_support",
-                                  "--device_ladder", "--device_similarity"])
+@pytest.mark.parametrize("flag", ["--device_similarity"])
 def test_unported_device_stage_raises(flag, cohort, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         port_main.main(["-i", cohort, "-o", str(tmp_path / "m.gtf"),
@@ -233,25 +384,30 @@ def test_help_matches_reference(capsys):
 
 
 @needs_native
-@pytest.mark.parametrize("greedy", [None, "step"])
-def test_cli_runs_with_jax_blocked(greedy, cohort, reference_off, tmp_path):
+@pytest.mark.parametrize("greedy,stages", [
+    (None, ()), ("step", ()), (None, ("bridge", "ladder", "support"))])
+def test_cli_runs_with_jax_blocked(greedy, stages, cohort, reference_off,
+                                   tmp_path):
     """python -m aletsch_tpu_torch with jax AND the JAX package made
-    unimportable, fused and in step mode: exit 0 and the reference's bytes
-    in every output file."""
+    unimportable, fused, in step mode, and fused with the bridge, support
+    and ladder stages on: exit 0 and the reference's bytes in every output
+    file."""
     out = tmp_path / "nojax"
     (out / "gtf").mkdir(parents=True)
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['aletsch_tpu'] = None; "
             "from aletsch_tpu_torch.__main__ import main; "
             "sys.exit(main(sys.argv[1:]))")
-    env = dict(os.environ, ALETSCH_TORCH_DEVICE="cpu", PYTHONPATH=REPO)
+    env = dict(os.environ, ALETSCH_TORCH_DEVICE="cpu", PYTHONPATH=REPO,
+               OMP_NUM_THREADS="1")
     env.pop("ALETSCH_DEVICE_GREEDY", None)
     if greedy is not None:
         env["ALETSCH_DEVICE_GREEDY"] = greedy
     res = subprocess.run(
         [sys.executable, "-c", code, "-i", cohort, "-o",
          str(out / "meta.gtf"), "-d", str(out / "gtf"), "--device_greedy",
-         "on", *FORCED, "--verbose", "1"], cwd=REPO, env=env,
+         "on", *FORCED, *_stage_flags(stages), "--verbose", "1"], cwd=REPO,
+        env=env,
         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-2000:]
     got = {"meta.gtf": (out / "meta.gtf").read_bytes()}
@@ -262,6 +418,8 @@ def test_cli_runs_with_jax_blocked(greedy, cohort, reference_off, tmp_path):
                    if ln.startswith("[aletsch_tpu_torch] device:")][-1]
     assert ("'dispatches'" in device_line) == (greedy == "step")
     assert ("'fused_graphs'" in device_line) == (greedy is None)
+    assert ("'ladder_graphs'" in device_line) == bool(stages)
+    assert ("'bridge_instances'" in device_line) == bool(stages)
 
 
 def test_sources_never_import_the_jax_package():

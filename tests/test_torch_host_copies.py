@@ -24,12 +24,23 @@ import pytest
 from aletsch_tpu import __main__ as ref_main
 from aletsch_tpu.config import default_params
 from aletsch_tpu.meta import bundle_group as ref_bundle_group
+from aletsch_tpu.ops import bridge_topk as ref_bridge
+from aletsch_tpu.ops import ladder_device as ref_ladder_device
+from aletsch_tpu.ops import ladder_kernel as ref_ladder
+from aletsch_tpu.ops import ladder_ref as ref_ladder_ref
 from aletsch_tpu.ops import similarity as ref_similarity
+from aletsch_tpu.ops import support as ref_support
 from aletsch_tpu.utils import tracing as ref_tracing
 from aletsch_tpu_torch import __main__ as port_main
 from aletsch_tpu_torch.meta import bundle_group as port_bundle_group
 from aletsch_tpu_torch.meta import device_wave as port_wave
+from aletsch_tpu_torch.ops import bridge_topk as port_bridge
+from aletsch_tpu_torch.ops import constants as port_constants
+from aletsch_tpu_torch.ops import ladder_device as port_ladder_device
+from aletsch_tpu_torch.ops import ladder_kernel as port_ladder
+from aletsch_tpu_torch.ops import ladder_ref as port_ladder_ref
 from aletsch_tpu_torch.ops import similarity as port_similarity
+from aletsch_tpu_torch.ops import support as port_support
 from aletsch_tpu_torch.utils import tracing as port_tracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,6 +59,7 @@ PLAIN_COPIES = [
     "meta/bundle.py", "meta/transcript_store.py", "meta/sample_profile.py",
     "meta/previewer.py", "meta/generator.py", "meta/native_tset.py",
     "meta/native_core.py", "meta/assembler.py", "meta/bundle_group.py",
+    "ops/ladder_ref.py",
 ]
 
 # seam module -> (definitions that differ on purpose, definitions the
@@ -121,7 +133,10 @@ def test_every_host_module_of_the_port_is_listed():
     the port's own device-side modules."""
     own = {"__init__.py", "device.py", "meta/device_wave.py",
            "ops/_build.py", "ops/bottleneck.py", "ops/constants.py",
-           "ops/drain.py", "ops/greedy_dp.py", "ops/greedy_fused.py"}
+           "ops/drain.py", "ops/greedy_dp.py", "ops/greedy_fused.py",
+           "ops/_replay.py", "ops/bridge_topk.py", "ops/support.py",
+           "ops/ladder_kernel.py",
+           "ops/ladder_device.py"}
     found = set()
     pkg = os.path.join(REPO, PORT)
     for d, _, files in os.walk(pkg):
@@ -134,6 +149,69 @@ def test_every_host_module_of_the_port_is_listed():
                 # docstring at most here
                 assert ast.parse(_read(PORT, rel)).body[1:] == []
     assert found == (set(PLAIN_COPIES) | set(SEAMS) | own) - {"__init__.py"}
+
+
+BRIDGE_NAMES = ("K", "S", "BIG", "SENTINEL", "DEFAULT_B", "DEFAULT_V",
+                "DEFAULT_E", "DEFAULT_T")
+SUPPORT_NAMES = ("DEFAULT_B", "DEFAULT_NS", "DEFAULT_J")
+LADDER_NAMES = ("DEFAULT_B", "DEFAULT_V", "DEFAULT_E", "DEFAULT_H",
+                "DEFAULT_L", "DEFAULT_DMAX", "DEFAULT_DLOG", "PC_BROKEN",
+                "PC_FAST", "PC_TV1", "PC_SMALL", "PC_DECOMP", "PC_DONE",
+                "ST_RUN", "ST_CLEAN", "ST_OVERFLOW", "INF", "BIGI", "BROKEN",
+                "TRIVIAL", "SMALLEST")
+LADDER_REF_NAMES = ("BROKEN", "TRIVIAL", "SMALLEST", "ST_CLEAN",
+                    "ST_OVERFLOW", "ST_INELIGIBLE")
+
+
+@pytest.mark.parametrize("ref,port,names", [
+    (ref_bridge, port_bridge, BRIDGE_NAMES),
+    (ref_support, port_support, SUPPORT_NAMES),
+    (ref_ladder, port_ladder, LADDER_NAMES),
+    (ref_ladder_ref, port_ladder_ref, LADDER_REF_NAMES),
+], ids=["bridge", "support", "ladder", "ladder_ref"])
+def test_device_dp_constants_match_jax(ref, port, names):
+    """The bridge, support and ladder constants of the port equal the JAX
+    package's, value and type."""
+    for name in names:
+        want, got = getattr(ref, name), getattr(port, name)
+        assert got == want and type(got) is type(want), name
+
+
+def test_bridge_and_support_constants_live_in_ops_constants():
+    c = port_constants
+    assert (c.BRIDGE_K, c.BRIDGE_S, c.BRIDGE_BIG, c.BRIDGE_SENTINEL) == \
+        (ref_bridge.K, ref_bridge.S, int(ref_bridge.BIG),
+         ref_bridge.SENTINEL) == (10, 5, 2 ** 30, 999999)
+    assert (c.BRIDGE_B, c.BRIDGE_V, c.BRIDGE_E, c.BRIDGE_T) == \
+        (64, 64, 16, 16)
+    assert (c.SUPPORT_B, c.SUPPORT_NS, c.SUPPORT_J) == (64, 16, 64)
+
+
+def test_ladder_solver_shapes_match_jax():
+    """DeviceLadder's defaults, its staging dtypes and the order of row(i)
+    are the JAX package's (the native export's C ABI); read from the
+    reference's source, since building its solver compiles the kernel."""
+    import inspect
+    ref_init = inspect.signature(ref_ladder_device.DeviceLadder.__init__)
+    port_init = inspect.signature(port_ladder_device.DeviceLadder.__init__)
+    ref_defaults = {k: v.default for k, v in ref_init.parameters.items()
+                    if k != "self"}
+    port_defaults = {k: v.default for k, v in port_init.parameters.items()
+                     if k not in ("self", "device")}
+    assert port_defaults == ref_defaults
+    dev = port_ladder_device.DeviceLadder(batch=2, device="cpu")
+    src = inspect.getsource(ref_ladder_device.DeviceLadder)
+    row = re.search(r"def row\(self, i\):.*?return \((.*?)\)\n", src,
+                    re.S).group(1)
+    order = re.findall(r"self\.(\w+)\[i\]", row)
+    assert len(order) == 12
+    for field, got in zip(order, dev.row(1)):
+        want = re.search(r"self\.%s = np\.\w+\(\((.*?)\), .*?np\.(\w+)\)"
+                         % field, src, re.S)
+        assert got.dtype == np.dtype(want.group(2)), field
+        assert got.base is not None and \
+            np.shares_memory(got, getattr(dev, field)), field
+        assert got.ndim == want.group(1).count(","), field
 
 
 def _splice_lists(rng, n, n_pos, dup=0.3):
