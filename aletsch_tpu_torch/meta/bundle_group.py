@@ -66,14 +66,14 @@ class BundleGroup:
         self.grouped = []
 
     def _use_device_similarity(self):
-        """Route the clustering rounds through the MXU matmul path
+        """Route the clustering rounds through the device similarity forms
         (ops/similarity.py) instead of the native intersections.  Default
-        "auto" follows the shared measured amortization model
-        (meta/device_wave.py auto_device_ok over ops/crossover.py:
-        engage iff a + b*B < c*B with measured a/b/c) AND requires at least
-        device_min_cluster (48: the region size where the matmul beats
-        the host intersections on a sub-ms-dispatch part, docs/DESIGN.md
-        "measured crossovers")."""
+        "auto" asks the measured policy about this stage's own fit
+        (meta/device_wave.py auto_device_ok over ops/crossover.py: engage
+        iff a + b*n < c*n with a/b/c measured for the sparse form against
+        the native clustering, at this region's n bundles) AND requires at
+        least device_min_cluster bundles (48: below it the product runs in
+        numpy anyway)."""
         import os
         mode = getattr(self.cfg, "device_similarity", "auto")
         if os.environ.get("ALETSCH_DEVICE") == "0" or mode == "off":
@@ -83,7 +83,7 @@ class BundleGroup:
         if len(self.gset) < getattr(self.cfg, "device_min_cluster", 48):
             return False
         from .device_wave import auto_device_ok
-        return auto_device_ok(self.cfg)
+        return auto_device_ok(self.cfg, len(self.gset), stage="similarity")
 
     def resolve(self):
         """bundle_group.cc:26-56; the clustering rounds run natively

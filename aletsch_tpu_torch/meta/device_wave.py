@@ -37,19 +37,23 @@ An instance the native export refuses (too small, too large, f32-lossy
 weights, over-padded windows) is solved by the native host DP mid-stream;
 results are byte-identical either way.
 
-Not ported yet, and so refused rather than run on another path when asked
-for: the device similarity matmul and the measured 'auto' policy ('auto'
-stays on the native host path, as the JAX package's does on a CPU
-backend).  Device failures propagate: a stage that is forced on and cannot
+'auto' (every stage's default) asks the measured policy, one fit a stage
+(ops/crossover.py): on a card the calibration is read from its cache or
+measured once; on the CPU device 'auto' stays on the native host path
+without measuring.  'on' and the ALETSCH_DEVICE* variables bypass the
+policy.  Device failures propagate: a stage that is forced on and cannot
 build its solver raises.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 from ..ops import bottleneck as bottleneck_ops
+from ..ops import crossover
 from ..ops import drain as drain_ops
+from ..ops import similarity as similarity_ops
 from ..ops.bridge_topk import DeviceBridge, K, S
 from ..ops.greedy_dp import DeviceGreedy
 from ..ops.greedy_fused import DeviceGreedyFused, device_f64_exact
@@ -78,91 +82,122 @@ _SUPPORT = None
 _LADDER = None
 _LADDER_TRUST = None
 
-# (config field, what is missing and where it is queued)
-_UNPORTED = (
-    ("device_similarity", "the similarity matmul (ROADMAP Queue 1 item 8)"),
-)
+_AUTO_CAL = ("unset",)
+_AUTO_LOCK = threading.Lock()   # waves are gated on two threads
+# what 'auto' answered in this process: {stage: {instances asked about:
+# answer}}; device_stats() reports it
+policy = {}
 
 
 def check_supported(cfg):
-    """Raise NotImplementedError for a device stage that is forced on but
-    not ported yet.  ALETSCH_DEVICE=0 turns every device stage off."""
-    if os.environ.get("ALETSCH_DEVICE") == "0":
-        return
-    for attr, what in _UNPORTED:
-        if getattr(cfg, attr, "off") == "on":
-            raise NotImplementedError(
-                "--%s on: %s is not ported to aletsch_tpu_torch yet"
-                % (attr, what))
+    """Raise NotImplementedError for what is asked for but not ported
+    yet: a device trace."""
     if getattr(cfg, "jax_profile_dir", ""):
         raise NotImplementedError(TRACE_UNPORTED)
 
 
+def auto_calibration(cfg):
+    """The measured amortization model the 'auto' stages consult: engage
+    the card iff a stage's dispatch cost a + b*B beats the native host's
+    c*B (ops/crossover.py), with one fit for each stage.  Returns the
+    calibration dict, or None where the device path should stay off:
+
+    - the CPU device: the "device" is this host, and a dispatch only adds
+      orchestration to the native host path -> None, without measuring,
+      reading a cache or creating a CUDA context;
+    - a card: the cached calibration of this platform and card (a JSON
+      file in the temporary directory, crossover.cache_path()), measured
+      once when missing or written for another card.
+
+    Read once a process.  'on' bypasses it (parity runs, fuzz, probes)."""
+    global _AUTO_CAL
+    with _AUTO_LOCK:
+        if _AUTO_CAL == ("unset",):
+            _AUTO_CAL = crossover.calibration(measure_if_missing=True)
+        return _AUTO_CAL
+
+
+def reset_policy():
+    """Forget the calibration and the answers given: the next 'auto'
+    question reads the cache again."""
+    global _AUTO_CAL
+    _AUTO_CAL = ("unset",)
+    policy.clear()
+
+
+def auto_device_ok(cfg, n_graphs=64, stage="drain"):
+    """True iff the measured model predicts a device win for `stage` at
+    n_graphs instances (crossover.stage_wins: the stage's own fit, and for
+    the stages that run inside a device wave the drain's too)."""
+    ok = crossover.stage_wins(stage, n_graphs, auto_calibration(cfg))
+    policy.setdefault(stage, {})[int(n_graphs)] = ok
+    return ok
+
+
 def enabled(cfg, n_groups):
     """Decide whether to run this wave through the device path: when the
-    greedy stage is 'on' (or ALETSCH_DEVICE=1) or any of bridge, support
-    and ladder is enabled.  'off' and 'auto' stay on the host ('auto'
-    waits for the crossover model, ROADMAP Queue 1 item 5).  Same answer
-    as the JAX package's gate on a CPU backend.  The incubator also
-    consults it before it launches a wave asynchronously on the host."""
+    greedy stage is 'on' (or ALETSCH_DEVICE=1), when any of bridge, support
+    and ladder is enabled for a wave of n_groups, or when the greedy stage
+    is 'auto', the wave has device_min_groups groups and the drain's fit
+    wins at n_groups.  The incubator also consults it before it launches a
+    wave asynchronously on the host."""
     env = os.environ.get("ALETSCH_DEVICE")
     if env == "0":
         return False
     check_supported(cfg)
-    if env == "1" or getattr(cfg, "device_greedy", "off") == "on" \
-            or bridge_enabled(cfg) or support_enabled(cfg) \
-            or ladder_enabled(cfg):
+    mode = getattr(cfg, "device_greedy", "off")
+    if env == "1" or mode == "on" or bridge_enabled(cfg, n_groups) \
+            or support_enabled(cfg, n_groups) \
+            or ladder_enabled(cfg, n_groups):
         require_native()
         return True
-    return False
+    if mode != "auto" \
+            or n_groups < getattr(cfg, "device_min_groups", 16) \
+            or not auto_device_ok(cfg, n_groups):
+        return False
+    require_native()
+    return True
 
 
-def _stage_enabled(cfg, attr, default, env_var, available, what):
+def _stage_enabled(cfg, stage, default, available, n):
     """One stage's gate: 'on' or its env var at 1 force it, its env var at
-    0 turns it off, 'auto' asks the measured policy.  A forced stage whose
-    native pause is missing raises."""
+    0 turns it off, 'auto' asks the measured policy about n instances.  An
+    engaged stage whose native pause is missing raises."""
+    attr = "device_" + stage
     mode = getattr(cfg, attr, default)
-    env = os.environ.get(env_var)
+    env = os.environ.get("ALETSCH_DEVICE_" + stage.upper())
     if env == "0":
         return False
-    if env == "1" or mode == "on" or (mode == "auto" and auto_device_ok(cfg)):
+    if env == "1" or mode == "on" \
+            or (mode == "auto" and auto_device_ok(cfg, n, stage)):
         if not available():
             raise RuntimeError("--%s on needs the native core's %s pause "
                                "(native/libabam.so, built by make -C native)"
-                               % (attr, what))
+                               % (attr, stage))
         return True
     return False
 
 
-def bridge_enabled(cfg):
-    """Whether GroupRuns also pause at bridging pier-DP instances."""
-    return _stage_enabled(cfg, "device_bridge", "off",
-                          "ALETSCH_DEVICE_BRIDGE",
-                          native_core.bridge_pause_available, "bridge")
+def bridge_enabled(cfg, n_groups=64):
+    """Whether GroupRuns also pause at bridging pier-DP instances.  'auto'
+    is asked at the wave's group count, the least a full phase exports."""
+    return _stage_enabled(cfg, "bridge", "off",
+                          native_core.bridge_pause_available, n_groups)
 
 
-def support_enabled(cfg):
+def support_enabled(cfg, n_groups=64):
     """Whether GroupRuns also pause at the cross-sample junction support
-    reduce (ops/support.py)."""
-    return _stage_enabled(cfg, "device_support", "off",
-                          "ALETSCH_DEVICE_SUPPORT",
-                          native_core.support_pause_available, "support")
+    reduce (ops/support.py): one row a group."""
+    return _stage_enabled(cfg, "support", "off",
+                          native_core.support_pause_available, n_groups)
 
 
-def ladder_enabled(cfg):
+def ladder_enabled(cfg, n_groups=64):
     """Whether GroupRuns pause at the scallop resolution ladder (pause
-    kind 4; ops/ladder_kernel.py batched over the wave's graphs)."""
-    return _stage_enabled(cfg, "device_ladder", "auto",
-                          "ALETSCH_DEVICE_LADDER",
-                          native_core.ladder_pause_available, "ladder")
-
-
-def auto_device_ok(cfg, n_graphs=64):
-    """Whether the measured crossover model predicts a device win for a
-    wave of n_graphs; the 'auto' stages ask (meta/bundle_group.py).  No
-    model is ported yet (ROADMAP Queue 1 item 5), so 'auto' stays on the
-    host, as the JAX package's does on a CPU backend."""
-    return False
+    kind 4; ops/ladder_kernel.py batched over the wave's graphs): at most
+    one graph a group in a dispatch."""
+    return _stage_enabled(cfg, "ladder", "auto",
+                          native_core.ladder_pause_available, n_groups)
 
 
 def step_mode():
@@ -228,11 +263,14 @@ def _get_ladder_device():
 
 def reset_solvers():
     """Drop every solver: the next wave builds them anew, probes trust
-    again (ALETSCH_FUSED_TRUST is read then) and starts their stats at 0."""
+    again (ALETSCH_FUSED_TRUST is read then) and starts their stats, and the
+    similarity forms' counters, at 0."""
     global _DEVICE, _FUSED, _FUSED_TRUST, _BRIDGE, _SUPPORT, _LADDER, \
         _LADDER_TRUST
     _DEVICE = _FUSED = _FUSED_TRUST = _BRIDGE = _SUPPORT = _LADDER = \
         _LADDER_TRUST = None
+    for k in similarity_ops.stats:
+        similarity_ops.stats[k] = 0
 
 
 def device_stats():
@@ -242,6 +280,12 @@ def device_stats():
     for s in (_DEVICE, _FUSED, _BRIDGE, _SUPPORT, _LADDER):
         if s is not None:
             d.update(s.stats)
+    d.update(similarity_ops.stats)
+    if policy:
+        cal = None if _AUTO_CAL == ("unset",) else _AUTO_CAL
+        d["auto"] = {"calibrated": cal is not None,
+                     "measured_in_s": cal and cal.get("measured_in_s"),
+                     "asked": {k: dict(v) for k, v in policy.items()}}
     if _FUSED is not None:
         d["fused_trust"] = bool(_FUSED_TRUST)
         d["fused_agree"] = int(native_core.fused_stats[0])
@@ -260,11 +304,11 @@ def assemble_groups(asms, gvs, cfg):
         dev, export = _get_device(), native_core.greedy_export
     else:
         dev, export = _get_fused_device(), native_core.greedy_export_fused
-    bridge_dev = bridge_enabled(cfg)
+    bridge_dev = bridge_enabled(cfg, len(asms))
     bdev = _get_bridge_device() if bridge_dev else None
-    support_dev = support_enabled(cfg)
+    support_dev = support_enabled(cfg, len(asms))
     sdev = _get_support_device() if support_dev else None
-    ladder_dev = ladder_enabled(cfg)
+    ladder_dev = ladder_enabled(cfg, len(asms))
     ldev = _get_ladder_device() if ladder_dev else None
     minv = int(getattr(cfg, "device_min_vertices", 16))
     runs = []               # (asmb, gv, handle-or-None) in group order

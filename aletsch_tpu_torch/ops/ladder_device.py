@@ -75,6 +75,17 @@ class DeviceLadder:
                 self.esin[i], self.esout[i], self.ealive[i], self.meta3[i],
                 self.nz[i], self.hedge[i], self.hlen[i], self.scal[i])
 
+    def stage_states(self, arr, n):
+        """Write the first n packed states of ladder_kernel.pack_states
+        into the staging rows, as the native export lays them out."""
+        for name in ("esrc", "edst", "ewrt", "estr", "esin", "esout",
+                     "ealive", "nz", "hedge", "hlen"):
+            getattr(self, name)[:n] = arr[name][:n]
+        for col, name in enumerate(("nedges", "nstamp", "nv")):
+            self.meta3[:n, col] = arr[name][:n]
+        for col, name in enumerate(("jump", "smallr", "guard", "smin")):
+            self.scal[:n, col] = arr[name][:n]
+
     def solve(self, nrows):
         """(larm [n,DLOG] i32, ltgt [n,DLOG] i32, ndec [n] i32, status [n]
         i32) as C-contiguous host arrays, for the first nrows staged

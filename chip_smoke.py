@@ -44,6 +44,27 @@ Phases, each of which exits non-zero on failure:
    device time and number of device kernels, for the bridge and the
    ladder both replayed and with every operation launched as it comes;
    for the ladder also its iterations a dispatch;
+2d. the device forms this port runs as plain PyTorch beside those, on the
+   card against their oracles: region_stats against region_stats_host in
+   f64 (mx exact, ave and dev within 1e-6) at 256 and 65,536 regions;
+   bottleneck_all_sources against its numpy oracle, exactly, at
+   [64, 64, 64] in f32 and f64, and its row 0 against the bottleneck
+   kernel's positive form; the sparse and the dense similarity forms (the
+   dense one through a forced overflow of the sparse one) against the host
+   form, pair lists equal, at 64, 200, 1024 and 4096 bundles; the wave
+   step (parallel/mesh.py) against its numpy oracle on example_batch at
+   B=64, V=64, S=16, P_=128, Ns=10, J=64 and on tensors captured from the
+   two-sample simulated cohort (seeds 41, 42), exact on bottleneck, mx,
+   sim and support, within 1e-6 on ave and dev.  Each with the host clock,
+   device time and device kernels of a dispatch, as in 2c;
+2e. the policy's measurements (ops/crossover.py, ops/mfu.py): the drain's
+   crossover at 64, 256 and 1024 graphs against the native host drain,
+   the ladder's against the native host ladder, similarity's and
+   coverage's, and the roofline accounting, each printed as one JSON line
+   with the card beside it.  The device results must agree with the
+   host's; nothing is required of who wins.  The launch counts are reset
+   before and read after: the measurements must have launched both
+   kernels;
 3. main path: the production cohort (2000 genes x 10 paired-end samples,
    tools/refbuild/baseline.py) through python -m aletsch_tpu with the
    device off (the reference bytes) and through the port's CLI with the
@@ -60,9 +81,9 @@ Phases, each of which exits non-zero on failure:
    counts reset; every output file byte-identical to the reference's, and
    the bottleneck kernel must have carried every dispatch;
 3c. the bridge, support and ladder stages on the card (--device_bridge on
-   --device_support on --device_ladder on beside the forced drain): as a
-   subprocess for its wall, in this process with every count reset
-   (trust mode), and once more in verify mode (ALETSCH_FUSED_TRUST=0: the
+   --device_support on --device_ladder on beside the forced drain): in
+   this process with every count reset (trust mode), and once more in
+   verify mode (ALETSCH_FUSED_TRUST=0: the
    host ladder and drain are authoritative and every device decision is
    compared with the host's).  Every output file byte-identical to the
    reference's, every stage engaged, ladder_agree == ladder_total and
@@ -70,7 +91,21 @@ Phases, each of which exits non-zero on failure:
    too.  The ladder's host clock is projected from phase 2c first; where
    the production cohort would take too long, the bridge and support
    stages run on it and the ladder runs (with them) on the largest smaller
-   cohort that fits, and the script prints which and why.
+   cohort that fits in trust mode and on 200 genes in verify mode, and the
+   script prints which and why;
+3d. the CLI's defaults, where every device stage is on 'auto': the
+   production cohort through python -m aletsch_tpu_torch with no
+   --device_* flag, once as it is (the first 'auto' question measures the
+   calibration into a temporary directory of the run's own) and once with
+   ALETSCH_DEVICE=0; every output byte-identical to the reference's; both
+   walls, the calibration's time, and for each stage its fit, what 'auto'
+   answered and what it sent to the card.  Every answer must equal what
+   the stage's own fit says, and no stage may reach the card whose fit
+   loses.  Then --device_similarity on on the same cohort, and once more
+   in this process on the 200-gene cohort with every subset of two or
+   more bundles sent to the card (the production cohort's subsets stay
+   below the 48 bundles from which the device forms run): byte-identical,
+   and the sparse form's counter must have grown.
 
 The last lines are the card (nvidia-smi), one JSON line of the kernels
 and the JSON result line.  In the kernels line, "launches" counts each
@@ -87,7 +122,7 @@ and its min/max/compare/select operations over the card's rate for them,
 both counted from this run's sinks and path counts.
 "library_ms" is null: no single PyTorch call computes a max-min chain in
 topological order with the drain's tie rule.  With --kernels-only the
-script stops after phase 2c, prints no result line and exits 0: a short
+script stops after phase 2e, prints no result line and exits 0: a short
 first check of a changed kernel, and a way to time two checkouts in turns
 on one card.  This script imports only the port; the JAX package runs
 as a subprocess.  jax and aletsch_tpu are made unimportable first: the port
@@ -110,18 +145,27 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GENES, SAMPLES = 2000, 10
 HOST_ARGS = ["--device_greedy", "off", "--max_num_exons", "8",
              "--verbose", "0"]
+# the forced drain alone: the other stages default to 'auto', which would
+# ask the measured policy; a later flag of the same name overrides these
 DEVICE_ARGS = ["--device_greedy", "on", "--device_min_vertices", "2",
                "--device_min_groups", "0", "--max_num_exons", "8",
-               "--verbose", "0"]
+               "--verbose", "0", "--device_bridge", "off",
+               "--device_support", "off", "--device_ladder", "off",
+               "--device_similarity", "off"]
+# phase 3d: the CLI's defaults, every device stage on 'auto'; verbose 1
+# prints the device stats line the phase reads
+DEFAULT_ARGS = ["--max_num_exons", "8", "--verbose", "1"]
 BRIDGE_SUPPORT_ARGS = ["--device_bridge", "on", "--device_support", "on"]
 LADDER_ARGS = ["--device_ladder", "on"]
 # Phase 3c: the seconds its two in-process ladder runs may take together,
 # the cohorts to choose from, and what the ladder needs of a cohort: its
 # lockstep iterations a gene (counted by DeviceLadder on the 200-gene
 # cohort with the flags above; a count of the data, the same on any
-# device).
-LADDER_BUDGET_S = 240.0
+# device).  On a host that launches slowly, where every other phase runs
+# longer too, the budget sends the trust-mode run to the smaller cohort.
+LADDER_BUDGET_S = 165.0
 LADDER_GENES = (2000, 1000, 500, 200)
+VERIFY_GENES = 200      # the ladder's verify-mode run, where it is cut
 LADDER_ITERATIONS_PER_GENE = 88.1
 SPIN_CYCLES = 10_000_000        # ~5 ms of GPU clock: longer than any enqueue
 REPS = 25
@@ -612,18 +656,6 @@ def _form_times(tag, solve, sizes, reps, extra=lambda n: ""):
     return out
 
 
-def _stage_ladder(solver, arr, n):
-    """Write the first n packed ladder states into a DeviceLadder's staging
-    rows, as the native export lays them out."""
-    for name in ("esrc", "edst", "ewrt", "estr", "esin", "esout", "ealive",
-                 "nz", "hedge", "hlen"):
-        getattr(solver, name)[:n] = arr[name][:n]
-    for col, name in enumerate(("nedges", "nstamp", "nv")):
-        solver.meta3[:n, col] = arr[name][:n]
-    for col, name in enumerate(("jump", "smallr", "guard", "smin")):
-        solver.scal[:n, col] = arr[name][:n]
-
-
 def _check_ladder(tag, seeds, shape, dev):
     """The ladder on the card against the reference machine and the same
     function on the host CPU, on every seeded state that fits the shape.
@@ -765,7 +797,7 @@ def torch_forms_vs_oracles(dev):
            full["L"], full["DMAX"], full["DLOG"]))
     ldev = DeviceLadder(device=dev)
     n_states = min(len(arr["nv"]), ldev.batch)
-    _stage_ladder(ldev, arr, n_states)
+    ldev.stage_states(arr, n_states)
     # the solver replays CUDA graphs: every state at once (a recorded batch
     # of 64, the rows behind the live ones switched off) equals the card's
     # run above
@@ -804,6 +836,264 @@ def torch_forms_vs_oracles(dev):
                    t["kernels"] / iters[n]))
         res[key] = times
     return res
+
+
+# ------------------------------------------------------------ phase 2d
+def _exact(tag, got, want):
+    import numpy as np
+    require(got.shape == want.shape and np.array_equal(got, want),
+            "%s differs from its oracle" % tag)
+
+
+def _close(tag, got, want):
+    import numpy as np
+    require(got.shape == want.shape
+            and np.allclose(got, want, rtol=1e-6, atol=1e-6),
+            "%s is not within 1e-6 of its oracle (max |diff| %g)"
+            % (tag, float(np.abs(got - want).max(initial=0.0))))
+
+
+def _check_step(tag, tensors, dev):
+    """The wave step on the card against the numpy oracle on the same
+    tensors: exact on bottleneck, mx, sim, support, 1e-6 on ave, dev."""
+    from aletsch_tpu_torch.parallel import mesh
+    from aletsch_tpu_torch.parallel.wave_extract import host_oracle
+    want = host_oracle(*tensors)
+    args = mesh.batch_from_numpy(*tensors, dev)
+    got = mesh.outputs_to_numpy(mesh.step(*args))
+    for name, g, w in zip(("bottleneck", "ave", "dev", "mx", "sim",
+                           "support"), got, want):
+        require(g.flags["C_CONTIGUOUS"], "%s %s is not contiguous"
+                % (tag, name))
+        (_close if name in ("ave", "dev") else _exact)(
+            "%s: the step's %s" % (tag, name), g, w)
+    return args
+
+
+def _capture_cohort(dev):
+    """The seven step tensors captured from the two-sample simulated cohort
+    (seeds 41, 42) by the port's own pipeline, on the host path."""
+    from aletsch_tpu_torch.config import default_params
+    from aletsch_tpu_torch.parallel.wave_extract import capture_cohort_tensors
+    from aletsch_tpu_torch.sim import simulate_sample
+    with tempfile.TemporaryDirectory(prefix="aletsch_chip_smoke_cap_") as tmp:
+        lines = []
+        for i, seed in enumerate((41, 42)):
+            bam = os.path.join(tmp, "s%d.bam" % i)
+            simulate_sample(bam, seed=seed)
+            lines.append("%s %s.bai paired_end\n" % (bam, bam))
+        lst = os.path.join(tmp, "bams.list")
+        with open(lst, "w") as fh:
+            fh.write("".join(lines))
+        os.makedirs(os.path.join(tmp, "gtf"))
+        params = default_params()
+        for p in params:
+            p.input_bam_list = lst
+            p.output_gtf_file = os.path.join(tmp, "meta.gtf")
+            p.output_gtf_dir = os.path.join(tmp, "gtf")
+            p.verbose = 0
+            for stage in ("greedy", "bridge", "support", "ladder",
+                          "similarity"):
+                setattr(p, "device_" + stage, "off")
+        tensors, info = capture_cohort_tensors(params, B=8, V=32, S=16,
+                                               P_=64, Ns=2, J=16)
+    require(info["groups"] >= 2 and info["samples"] == 2
+            and info["junctions"] >= 1, "the capture degenerated: %s" % info)
+    return tensors, info
+
+
+def _splice_lists(n, npos, seed=17):
+    import random
+    rng = random.Random(seed)
+    return [sorted(rng.sample(range(npos), rng.randint(2, 14)))
+            for _ in range(n)]
+
+
+def new_forms_vs_oracles(dev):
+    """Phase 2d.  Returns {form: {size: times}}."""
+    import numpy as np
+    import torch
+
+    from aletsch_tpu_torch.ops import bottleneck as BN
+    from aletsch_tpu_torch.ops import bridge_dp as BD
+    from aletsch_tpu_torch.ops import coverage as CV
+    from aletsch_tpu_torch.ops import similarity as SM
+    from aletsch_tpu_torch.parallel import mesh
+    res = {}
+
+    # region stats, f64: the dispatch is numpy in, numpy out
+    rng = np.random.default_rng(11)
+    batches = {}
+    for R in (256, 65536):
+        vals = rng.integers(1, 500, size=(R, 16)).astype(np.float64)
+        lens = rng.integers(1, 300, size=(R, 16)).astype(np.float64)
+        mask = (rng.random((R, 16)) < 0.7).astype(np.float64)
+        mask[::97] = 0.0                       # empty regions: the defaults
+        span = (lens * mask).sum(axis=1) + rng.integers(0, 100, R)
+        batches[R] = (vals, lens, mask, span)
+
+    def stats_dispatch(R):
+        out = CV.region_stats(*CV.batch_from_numpy(*batches[R], dev))
+        return [np.ascontiguousarray(t.cpu().numpy()) for t in out]
+
+    for R in batches:
+        ave, dv, mx = stats_dispatch(R)
+        wa, wd, wm = CV.region_stats_host(*batches[R])
+        _exact("region_stats R=%d: mx" % R, mx, wm)
+        _close("region_stats R=%d: ave" % R, ave, wa)
+        _close("region_stats R=%d: dev" % R, dv, wd)
+    log("region_stats on the card (f64) against region_stats_host at R = 256 "
+        "and 65,536, S = 16: mx exact, ave and dev within 1e-6")
+    res["region_stats"] = _form_times("region_stats dispatch",
+                                      stats_dispatch, (256, 65536), 25)
+
+    # all-sources bottleneck, [64, 64, 64]
+    W = mesh.example_batch(B=64, V=64, seed=5)[0]
+    Wd = torch.from_numpy(W).to(dev)
+    oracle = BD.bottleneck_all_sources_host(W)
+    T = BD.bottleneck_all_sources(Wd)
+    _exact("bottleneck_all_sources f32", T.cpu().numpy(),
+           oracle.astype(np.float32))
+    _exact("bottleneck_all_sources f64",
+           BD.bottleneck_all_sources(Wd.double()).cpu().numpy(), oracle)
+    row0 = BN.bottleneck_cuda(Wd, False)
+    torch.cuda.synchronize()
+    require(np.array_equal(_canon(T[:, 0, :].cpu().numpy()),
+                           _canon(row0.cpu().numpy())),
+            "row 0 of bottleneck_all_sources differs from the bottleneck "
+            "kernel's positive form")
+    log("bottleneck_all_sources on the card == numpy oracle, exactly, in f32 "
+        "and f64 at [64, 64, 64]; its row 0 == the bottleneck kernel's "
+        "positive form on the same W")
+    res["bottleneck_all_sources"] = _form_times(
+        "bottleneck_all_sources",
+        lambda n: BD.bottleneck_all_sources(Wd[:n]).cpu(), (1, 64), 5)
+
+    # similarity: the sparse form, and the dense form through a forced
+    # overflow of the sparse one, against the host form
+    th, cap = SM._DEVICE_THRESHOLD, SM._K_CAP
+    lists = {n: _splice_lists(n, max(60, n // 2)) for n in
+             (64, 200, 1024, 4096)}
+    want = {}
+    try:
+        SM._DEVICE_THRESHOLD = 10 ** 9
+        for n in lists:
+            want[n] = SM.pairwise_splice_similarity(lists[n], 0.5)
+    finally:
+        SM._DEVICE_THRESHOLD = th
+
+    def dense_pairs(n):
+        SM._K_CAP = 16          # more candidates than K: the sparse form
+        try:                    # declines and the dense form takes over
+            return SM.pairwise_splice_similarity(lists[n], 0.5)
+        finally:
+            SM._K_CAP = cap
+
+    for n in lists:
+        st0 = dict(SM.stats)
+        require(SM.pairwise_splice_similarity(lists[n], 0.5) == want[n],
+                "similarity n=%d: the sparse form's pair list differs from "
+                "the host form's" % n)
+        require(SM.stats["similarity_sparse"] == st0["similarity_sparse"] + 1,
+                "similarity n=%d: the sparse form did not run (%s)"
+                % (n, SM.stats))
+        require(len(want[n]) > 16, "similarity n=%d: only %d pairs"
+                % (n, len(want[n])))
+        st0 = dict(SM.stats)
+        require(dense_pairs(n) == want[n], "similarity n=%d: the dense "
+                "form's pair list differs from the host form's" % n)
+        require(SM.stats["similarity_overflow"]
+                == st0["similarity_overflow"] + 1
+                and SM.stats["similarity_dense"]
+                == st0["similarity_dense"] + 1,
+                "similarity n=%d: the forced overflow did not reach the "
+                "dense form (%s)" % (n, SM.stats))
+    log("similarity on the card: sparse form == dense form (forced overflow, "
+        "K = 16) == host form, pair lists equal, at n = %s bundles (%s pairs)"
+        % (", ".join(str(n) for n in lists),
+           ", ".join(str(len(want[n])) for n in lists)))
+    res["similarity_sparse"] = _form_times(
+        "pairwise_splice_similarity, sparse form,",
+        lambda n: SM.pairwise_splice_similarity(lists[n], 0.5),
+        tuple(lists), 3)
+    res["similarity_dense"] = _form_times(
+        "pairwise_splice_similarity, dense form,", dense_pairs,
+        tuple(lists), 3)
+
+    return res
+
+
+def wave_step_vs_oracle(dev):
+    """Phase 2d, last part: the wave step.  It runs after phase 2e because
+    the capture runs the port's pipeline in this process, which pins the
+    host's BLAS pools to one thread, and phase 2e times numpy products."""
+    from aletsch_tpu_torch.parallel import mesh
+    shape = dict(B=64, V=64, S=16, P_=128, Ns=10, J=64)
+    args = _check_step("example_batch", mesh.example_batch(**shape), dev)
+    tensors, info = _capture_cohort(dev)
+    _check_step("captured cohort", tensors, dev)
+    log("wave step on the card == host_oracle (bottleneck, mx, sim, support "
+        "exact; ave, dev within 1e-6) on example_batch(%s) and on the "
+        "captured 41 / 42 cohort (%d groups, %d junctions, %d splices)"
+        % (", ".join("%s=%d" % kv for kv in shape.items()), info["groups"],
+           info["junctions"], info["splices"]))
+    return _form_times(
+        "wave step", lambda n: mesh.outputs_to_numpy(mesh.step(*args)),
+        (64,), 5)
+
+
+# ------------------------------------------------------------ phase 2e
+def policy_measurements(smi):
+    """Phase 2e: every measurement the policy rests on, each printed as one
+    JSON line with the card beside it.  Nothing is required of who wins."""
+    from aletsch_tpu_torch.ops import crossover, mfu
+    out = {}
+    _reset_launches()
+    for name, fn in (
+            ("measure", lambda: crossover.measure(batches=(64, 256, 1024))),
+            ("measure_ladder", crossover.measure_ladder),
+            ("measure_similarity",
+             lambda: crossover.measure_similarity(reps=2)),
+            ("measure_coverage", crossover.measure_coverage),
+            ("mfu.measure_all", mfu.measure_all)):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        print(json.dumps({"policy": name, "card": smi,
+                          "seconds": round(time.perf_counter() - t0, 2),
+                          "result": out[name]}), flush=True)
+    for r in out["measure"]["table"]:
+        require(r["paths_agree"] and r["bit_exact_vs_host"],
+                "measure B=%d: the card's drain disagrees with the native "
+                "host drain" % r["B"])
+    for r in out["measure_ladder"]["table"]:
+        require(r["ndec_agree"] == r["eligible_and_clean"] > 0,
+                "measure_ladder B=%d: %d of %d eligible clean graphs agree "
+                "with the native host ladder"
+                % (r["B"], r["ndec_agree"], r["eligible_and_clean"]))
+    for r in out["measure_similarity"]["table"]:
+        require(r["counts_identical"], "measure_similarity n=%d: the dense "
+                "product differs from numpy's" % r["n_bundles"])
+    for r in out["measure_similarity"]["sparse_form"]["rows"]:
+        require(r["results_identical"] is True, "measure_similarity n=%d: "
+                "the sparse form's pair list differs from the host form's"
+                % r["n_bundles"])
+    for r in out["measure_coverage"]["table"]:
+        require(r["mx_identical"] and r["ave_dev_within_1e-6"],
+                "measure_coverage R=%d: the card's stats differ from "
+                "numpy's" % r["n_regions"])
+    n = _launches()
+    require(n["drain"] > 0 and n["bottleneck"] > 0, "the policy's "
+            "measurements launched %s: they must run the drain and the "
+            "bottleneck kernels" % n)
+    log("the policy's measurements launched the drain kernel %d times and "
+        "the bottleneck kernel %d times" % (n["drain"], n["bottleneck"]))
+    f = out["measure"]["fit"]
+    log("drain fit on this card: a %.4f ms, b %.3f us a graph, c %.3f us a "
+        "graph, break_even_B %s; resident %.3f us a graph at B = 64"
+        % (f["a_fixed_dispatch_s"] * 1e3, f["b_per_graph_device_s"] * 1e6,
+           f["c_per_graph_host_s"] * 1e6, out["measure"]["break_even_B"],
+           out["measure"]["table"][0]["resident_us_per_graph"] or -1.0))
+    return out
 
 
 # ------------------------------------------------------------ phase 3
@@ -908,6 +1198,9 @@ def main_path(forms, genes=GENES, samples=SAMPLES):
                                         row_limit=12), flush=True)
         res["step"] = step_path(tmp, lst, ref, env)
         res["new"] = new_path(tmp, lst, ref, env, forms, genes, samples)
+        res["default"] = default_path(tmp, lst, ref, env,
+                                      res["new"].pop("small"),
+                                      res["new"].pop("small_ref"))
     res["walls"] = walls
     return res
 
@@ -1016,16 +1309,18 @@ def new_path(tmp, lst, ref, env, forms, genes, samples):
     """Phase 3c: the bridge, support and ladder stages through the port's
     CLI on the card."""
     ms_iter = forms["ladder"][3]["host_ms"] / forms["ladder"][3]["iterations"]
-    # what two in-process ladder runs (trust and verify) would take
-    projected = {g: 2 * LADDER_ITERATIONS_PER_GENE * g * ms_iter / 1e3
-                 for g in LADDER_GENES if g <= genes}
+    # what the two in-process ladder runs would take: trust mode on g
+    # genes, verify mode on VERIFY_GENES
+    projected = {g: LADDER_ITERATIONS_PER_GENE * (g + VERIFY_GENES) * ms_iter
+                 / 1e3 for g in LADDER_GENES if g <= genes}
     fits = [g for g in sorted(projected, reverse=True)
             if projected[g] <= LADDER_BUDGET_S]
     ladder_genes = fits[0] if fits else min(projected)
     log("ladder projection: %.3f ms of host clock an iteration (phase 2c, "
-        "three rows) x %.1f iterations a gene x 2 runs = %s s for %s genes; "
-        "budget %.0f s: the ladder runs on %d genes%s"
-        % (ms_iter, LADDER_ITERATIONS_PER_GENE,
+        "three rows) x %.1f iterations a gene x (genes + %d for the verify "
+        "run) = %s s for %s genes; budget %.0f s: the ladder runs on %d "
+        "genes%s"
+        % (ms_iter, LADDER_ITERATIONS_PER_GENE, VERIFY_GENES,
            " / ".join("%.0f" % projected[g] for g in sorted(projected)),
            " / ".join(str(g) for g in sorted(projected)), LADDER_BUDGET_S,
            ladder_genes, "" if fits else " (none fits; the smallest is run)"))
@@ -1035,52 +1330,181 @@ def new_path(tmp, lst, ref, env, forms, genes, samples):
     extra = BRIDGE_SUPPORT_ARGS + (LADDER_ARGS if full else [])
     stages = ("bridge", "support") + (("ladder",) if full else ())
 
-    # the production cohort: subprocess for the wall, then in process
-    out = os.path.join(tmp, "new_subprocess")
-    res["wall"] = _subprocess_wall(
-        "aletsch_tpu_torch", lst, out, DEVICE_ARGS + extra,
-        dict(env, ALETSCH_TORCH_DEVICE="cuda"))
-    _require_same(_outputs(out), ref, "the new path's subprocess run")
-    log("new path (%s) on %d genes: subprocess wall %.2f s; every output "
-        "byte-identical (%d files)" % (" ".join(extra), genes, res["wall"],
-                                       len(ref)))
+    # the production cohort, in this process (a subprocess would run the
+    # same path a second time for a wall that includes the start-up)
     out = os.path.join(tmp, "new_in_process")
     wall, st, n = _in_process_run(lst, out, extra, True)
     _require_same(_outputs(out), ref, "the new path's in-process run")
     _check_new_path("new path, %d genes" % genes, st, n, stages, True)
     res["runs"] = [("%d genes, %s, trust" % (genes, "+".join(stages)),
                     wall, st, n)]
-    if full:
-        out = os.path.join(tmp, "new_verify")
-        wall, st, n = _in_process_run(lst, out, extra, False)
-        _require_same(_outputs(out), ref, "the new path's verify-mode run")
-        _check_new_path("new path, verify mode", st, n, stages, False)
-        res["runs"].append(("%d genes, %s, verify" % (genes,
-                                                      "+".join(stages)),
-                            wall, st, n))
-        return res
 
-    # the ladder, with the other stages, on the smaller cohort
-    small = _build_cohort(os.path.join(tmp, "cohort_ladder"), ladder_genes,
-                          samples, env)
-    out = os.path.join(tmp, "ladder_reference")
-    res["ladder_reference_wall"] = _subprocess_wall(
-        "aletsch_tpu", small, out, HOST_ARGS, env)
-    small_ref = _outputs(out)
-    log("ladder cohort: reference subprocess wall %.2f s (%d files)"
-        % (res["ladder_reference_wall"], len(small_ref)))
+    # the ladder, with the other stages: trust mode on the largest cohort
+    # that fits, verify mode on the small one
     extra = BRIDGE_SUPPORT_ARGS + LADDER_ARGS
     stages = ("bridge", "support", "ladder")
-    for trust in (True, False):
+    res["ladder_reference_walls"] = {}
+    cohorts = {genes: (lst, ref)}
+    for trust, g in ((True, ladder_genes), (False, VERIFY_GENES)):
         mode = "trust" if trust else "verify"
+        if g == genes and trust:
+            continue            # the run above had the ladder on
+        if g not in cohorts:
+            cohort = _build_cohort(os.path.join(tmp, "cohort_%d" % g), g,
+                                   samples, env)
+            out = os.path.join(tmp, "ladder_reference_%d" % g)
+            res["ladder_reference_walls"][g] = _subprocess_wall(
+                "aletsch_tpu", cohort, out, HOST_ARGS, env)
+            cohorts[g] = (cohort, _outputs(out))
+            log("%d-gene cohort: reference subprocess wall %.2f s (%d files)"
+                % (g, res["ladder_reference_walls"][g], len(cohorts[g][1])))
+        cohort, cohort_ref = cohorts[g]
         out = os.path.join(tmp, "ladder_" + mode)
-        wall, st, n = _in_process_run(small, out, extra, trust)
-        _require_same(_outputs(out), small_ref,
+        wall, st, n = _in_process_run(cohort, out, extra, trust)
+        _require_same(_outputs(out), cohort_ref,
                       "the ladder's %s-mode run" % mode)
-        _check_new_path("ladder cohort, %s mode" % mode, st, n, stages, trust)
-        res["runs"].append(("%d genes, %s, %s" % (ladder_genes,
-                                                  "+".join(stages), mode),
+        _check_new_path("%d-gene cohort, %s mode" % (g, mode), st, n, stages,
+                        trust)
+        res["runs"].append(("%d genes, %s, %s" % (g, "+".join(stages), mode),
                             wall, st, n))
+    # the verify cohort is phase 3d's small cohort too
+    res["small"], res["small_ref"] = cohort, cohort_ref
+    return res
+
+
+# ------------------------------------------------------------ phase 3d
+# stage -> the counters of device_stats() that count what it sent to the card
+STAGE_COUNTS = {"drain": ("fused_graphs",),
+                "bridge": ("device_bridge_insts",),
+                "support": ("device_support_groups",),
+                "ladder": ("device_ladder_graphs",),
+                "similarity": ("similarity_sparse", "similarity_dense")}
+
+
+def _default_run(lst, out, env, extra=()):
+    """The port's CLI as a subprocess with no --device_* flag but `extra`.
+    Returns (wall, the device stats of its last stderr line)."""
+    import ast
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "aletsch_tpu_torch", "-i", lst,
+         *_cli_args(out), *DEFAULT_ARGS, *extra], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    require(res.returncode == 0, "the port's CLI failed at its defaults: %s"
+            % res.stderr[-2000:])
+    lines = [ln for ln in res.stderr.splitlines()
+             if ln.startswith("[aletsch_tpu_torch] device:")]
+    require(lines, "the port's CLI printed no device stats line")
+    return wall, ast.literal_eval(lines[-1].split("device:", 1)[1].strip())
+
+
+def _sent(st, stage):
+    return sum(st.get(k, 0) for k in STAGE_COUNTS[stage])
+
+
+def default_path(tmp, lst, ref, env, small, small_ref):
+    """Phase 3d: the production cohort through the port's CLI at its
+    defaults ('auto' everywhere), its ALETSCH_DEVICE=0 twin, and
+    --device_similarity on."""
+    from aletsch_tpu_torch.ops import crossover
+    from aletsch_tpu_torch.ops import similarity as SM
+    policy_tmp = os.path.join(tmp, "policy_tmp")
+    os.makedirs(policy_tmp)
+    # a temporary directory of its own: the first run finds no calibration
+    # and measures one, the later runs read it
+    cuda_env = dict(env, ALETSCH_TORCH_DEVICE="cuda", TMPDIR=policy_tmp)
+    res = {}
+    out = os.path.join(tmp, "default_auto")
+    res["wall_auto"], st = _default_run(lst, out, cuda_env)
+    _require_same(_outputs(out), ref, "the default ('auto') run")
+    out = os.path.join(tmp, "default_off")
+    res["wall_off"], st_off = _default_run(
+        lst, out, dict(cuda_env, ALETSCH_DEVICE="0"))
+    _require_same(_outputs(out), ref, "the default run with ALETSCH_DEVICE=0")
+    require("auto" not in st_off and not any(
+        _sent(st_off, s) for s in STAGE_COUNTS),
+        "ALETSCH_DEVICE=0 still asked the policy or reached the card: %s"
+        % st_off)
+
+    cache = os.path.join(policy_tmp, os.path.basename(crossover.cache_path()))
+    require(os.path.isfile(cache), "the default run left no calibration at "
+            "%s" % os.path.basename(cache))
+    with open(cache) as fh:
+        cal = json.load(fh)
+    auto = st.get("auto")
+    require(auto and auto["calibrated"], "the default run never asked the "
+            "policy: %s" % st)
+    res["calibration_s"] = cal["measured_in_s"]
+    res["cal"], res["stats"] = cal, st
+    log("default run ('auto' everywhere) wall %.2f s, of which the one-off "
+        "calibration %.2f s; with ALETSCH_DEVICE=0 %.2f s; both "
+        "byte-identical to the reference (%d files)"
+        % (res["wall_auto"], cal["measured_in_s"], res["wall_off"], len(ref)))
+    engaged = {}
+    for stage in crossover.STAGES:
+        asked = auto["asked"].get(stage, {})
+        for n, ans in asked.items():
+            want = crossover.stage_wins(stage, n, cal)
+            require(ans == want, "'auto' answered %s for %s at %d "
+                    "instances; its fit says %s" % (ans, stage, n, want))
+        engaged[stage] = any(asked.values())
+    in_wave = any(engaged[s] for s in ("drain", "bridge", "support",
+                                       "ladder"))
+    res["policy"] = {}
+    for stage in crossover.STAGES:
+        sub = crossover.stage_calibration(cal, stage)
+        asked = auto["asked"].get(stage, {})
+        sent = _sent(st, stage)
+        # a wave that any stage engages runs its drains on the card too
+        may = in_wave if stage == "drain" else engaged[stage]
+        require(may or sent == 0, "%s sent %d instances to the card though "
+                "its fit loses at every size asked" % (stage, sent))
+        f = sub["fit"] if sub else {}
+        res["policy"][stage] = dict(
+            a_ms=f.get("a_fixed_dispatch_s", 0.0) * 1e3,
+            b_us=f.get("b_per_graph_device_s", 0.0) * 1e6,
+            c_us=f.get("c_per_graph_host_s", 0.0) * 1e6,
+            break_even=sub.get("break_even_B") if sub else None,
+            asked=len(asked), sizes=(min(asked), max(asked)) if asked
+            else None, yes=sum(asked.values()), sent=sent)
+        p = res["policy"][stage]
+        log("  'auto' %s: fit a %.4f ms, b %.3f us, c %.3f us an instance, "
+            "break-even %s; asked at %d sizes (%s), yes at %d; instances "
+            "sent to the card %d"
+            % (stage, p["a_ms"], p["b_us"], p["c_us"], p["break_even"],
+               p["asked"], "%d to %d" % p["sizes"] if p["sizes"] else "none",
+               p["yes"], sent))
+
+    # --device_similarity on, the other stages on 'auto'
+    out = os.path.join(tmp, "default_similarity")
+    res["wall_similarity"], st_sim = _default_run(
+        lst, out, cuda_env, ["--device_similarity", "on"])
+    _require_same(_outputs(out), ref, "the --device_similarity on run")
+    res["similarity_stats"] = {k: st_sim.get(k, 0) for k in SM.stats}
+    log("--device_similarity on, production cohort: wall %.2f s, "
+        "byte-identical; device forms run: %s (a subset of fewer than %d "
+        "bundles stays in numpy)"
+        % (res["wall_similarity"], res["similarity_stats"],
+           SM._DEVICE_THRESHOLD))
+    # the same stage with every subset of two or more bundles sent to the
+    # card, in this process on the small cohort
+    th = SM._DEVICE_THRESHOLD
+    SM._DEVICE_THRESHOLD = 2
+    try:
+        out = os.path.join(tmp, "similarity_forced")
+        wall, st_forced, _ = _in_process_run(
+            small, out, ["--device_similarity", "on"], True)
+    finally:
+        SM._DEVICE_THRESHOLD = th
+    _require_same(_outputs(out), small_ref,
+                  "the run with every subset's similarity on the card")
+    require(st_forced["similarity_sparse"] > 0,
+            "the similarity form never ran: %s" % st_forced)
+    res["similarity_forced"] = (wall, {k: st_forced[k] for k in SM.stats})
+    log("--device_similarity on with every subset of >= 2 bundles on the "
+        "card, %d-gene cohort, in process: wall %.2f s, byte-identical; %s"
+        % (VERIFY_GENES, wall, res["similarity_forced"][1]))
     return res
 
 
@@ -1108,6 +1532,9 @@ def main(argv=None):
         err, times = kernel_vs_plain(dev)
         bn_err, pos_launches, bn_times = bottleneck_vs_plain(dev)
         forms = torch_forms_vs_oracles(dev)
+        new_forms_vs_oracles(dev)
+        policy_measurements(smi)
+        wave_step_vs_oracle(dev)
         if kernels_only:
             log("--kernels-only: stopping before the main path")
             return 0

@@ -5,8 +5,9 @@ the CPU), fused and in step mode (ALETSCH_DEVICE_GREEDY=step), and with the
 bridge top-K DP, the support reduce and the resolution ladder forced on,
 each alone and all together: every output file byte-identical, the device
 engaged, trust and verify mode, the device gates, the refusals of what is
-not ported yet, and a run with jax and the JAX package both unimportable:
-the port owns every module it runs."""
+not ported yet, and runs with jax and the JAX package both unimportable
+(also at the CLI's defaults and with --device_similarity on): the port
+owns every module it runs."""
 
 import os
 import re
@@ -317,13 +318,6 @@ def test_device_gates_agree(mode, env, greedy, stage, stage_mode,
         assert port_wave.enabled(cfg, 1) is True
 
 
-@pytest.mark.parametrize("flag", ["--device_similarity"])
-def test_unported_device_stage_raises(flag, cohort, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_main.main(["-i", cohort, "-o", str(tmp_path / "m.gtf"),
-                        flag, "on"])
-
-
 @needs_native
 def test_step_mode_engages(monkeypatch):
     cfg = default_params()[0]
@@ -385,13 +379,15 @@ def test_help_matches_reference(capsys):
 
 @needs_native
 @pytest.mark.parametrize("greedy,stages", [
-    (None, ()), ("step", ()), (None, ("bridge", "ladder", "support"))])
+    (None, ()), ("step", ()), (None, ("bridge", "ladder", "support")),
+    ("defaults", ()), (None, ("similarity",))])
 def test_cli_runs_with_jax_blocked(greedy, stages, cohort, reference_off,
                                    tmp_path):
     """python -m aletsch_tpu_torch with jax AND the JAX package made
-    unimportable, fused, in step mode, and fused with the bridge, support
-    and ladder stages on: exit 0 and the reference's bytes in every output
-    file."""
+    unimportable, fused, in step mode, fused with the bridge, support and
+    ladder stages on, at the CLI's defaults (every device stage on 'auto',
+    which stays on the host on the CPU device) and with --device_similarity
+    on: exit 0 and the reference's bytes in every output file."""
     out = tmp_path / "nojax"
     (out / "gtf").mkdir(parents=True)
     code = ("import sys; sys.modules['jax'] = None; "
@@ -401,12 +397,18 @@ def test_cli_runs_with_jax_blocked(greedy, stages, cohort, reference_off,
     env = dict(os.environ, ALETSCH_TORCH_DEVICE="cpu", PYTHONPATH=REPO,
                OMP_NUM_THREADS="1")
     env.pop("ALETSCH_DEVICE_GREEDY", None)
-    if greedy is not None:
+    if greedy == "step":
         env["ALETSCH_DEVICE_GREEDY"] = greedy
+    defaults = greedy == "defaults"
+    flags = ["--max_num_exons", "8"] if defaults else \
+        ["--device_greedy", "on", *FORCED]
+    if "similarity" in stages:
+        flags += ["--device_similarity", "on"]
+        stages = ()
     res = subprocess.run(
         [sys.executable, "-c", code, "-i", cohort, "-o",
-         str(out / "meta.gtf"), "-d", str(out / "gtf"), "--device_greedy",
-         "on", *FORCED, *_stage_flags(stages), "--verbose", "1"], cwd=REPO,
+         str(out / "meta.gtf"), "-d", str(out / "gtf"), *flags,
+         *_stage_flags(stages), "--verbose", "1"], cwd=REPO,
         env=env,
         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-2000:]
@@ -418,6 +420,12 @@ def test_cli_runs_with_jax_blocked(greedy, stages, cohort, reference_off,
                    if ln.startswith("[aletsch_tpu_torch] device:")][-1]
     assert ("'dispatches'" in device_line) == (greedy == "step")
     assert ("'fused_graphs'" in device_line) == (greedy is None)
+    # every stage left on 'auto' asked the policy, which has no calibration
+    # on the CPU device and answered no
+    assert ("'calibrated': False" in device_line) == (len(stages) < 3)
+    if "'asked'" in device_line:
+        answers = device_line.split("'asked'")[1].split("}}}")[0]
+        assert "False" in answers and "True" not in answers
     assert ("'ladder_graphs'" in device_line) == bool(stages)
     assert ("'bridge_instances'" in device_line) == bool(stages)
 

@@ -9,8 +9,9 @@ hide no other difference: the absolute mount point that five module
 docstrings give in brackets for the upstream C++ sources is dropped, and
 the offline replay program of native/replay_batch.cpp is called a
 harness.  A seam module, which differs on purpose, must equal its original in every function but
-the ones named here, and the behaviour behind the seam is held to the JAX
-package's on seeded inputs.  A fix to a host module of the reference goes
+the ones named here (those that differ, those it leaves out and those it
+adds), and the behaviour behind the seam is held to the JAX package's on
+seeded inputs.  A fix to a host module of the reference goes
 into the copy in the same change, or these fail.
 """
 
@@ -58,26 +59,37 @@ PLAIN_COPIES = [
     "scallop/subsetsum.py", "scallop/ugraph.py",
     "meta/bundle.py", "meta/transcript_store.py", "meta/sample_profile.py",
     "meta/previewer.py", "meta/generator.py", "meta/native_tset.py",
-    "meta/native_core.py", "meta/assembler.py", "meta/bundle_group.py",
-    "ops/ladder_ref.py",
+    "meta/native_core.py", "meta/assembler.py",
+    "ops/ladder_ref.py", "parallel/wave_extract.py", "sim.py",
 ]
 
 # seam module -> (definitions that differ on purpose, definitions the
-# original has and the copy leaves out)
+# original has and the copy leaves out, definitions the copy adds)
 SEAMS = {
     "utils/tracing.py": (
         {"Tracer.__init__", "Tracer.start_jax_trace",
-         "Tracer.stop_jax_trace"}, set()),
+         "Tracer.stop_jax_trace"}, set(), set()),
+    # the device forms are PyTorch on the port's device: no jitted
+    # functions to cache, no shape buckets
     "ops/similarity.py": (
-        {"pairwise_splice_similarity"},
-        {"_get_jax_fn", "_get_jax_fn.fn", "_pad",
-         "_intersection_matrix_device", "_get_sparse_fn",
-         "_get_sparse_fn.fn", "_pad_nnz", "_pairs_device_sparse"}),
+        {"pairwise_splice_similarity", "_intersection_matrix_device",
+         "_pairs_device_sparse"},
+        {"_get_jax_fn", "_get_jax_fn.fn", "_pad", "_get_sparse_fn",
+         "_get_sparse_fn.fn", "_pad_nnz"},
+        {"_counts", "_sparse_candidates"}),
+    # 'auto' asks similarity's own fit at the region's size
+    "meta/bundle_group.py": (
+        {"BundleGroup._use_device_similarity"}, set(), set()),
     "meta/incubator.py": (
         {"Incubator.__init__", "Incubator.init_samples",
-         "Incubator._assemble_groups"}, {"_prep_samples_subprocess"}),
-    "__main__.py": ({"main"}, set()),
+         "Incubator._assemble_groups"}, {"_prep_samples_subprocess"}, set()),
+    "__main__.py": ({"main"}, set(), set()),
 }
+
+
+@pytest.fixture(autouse=True)
+def _cpu_device(monkeypatch):
+    monkeypatch.setenv("ALETSCH_TORCH_DEVICE", "cpu")
 
 
 def _read(pkg, rel):
@@ -119,12 +131,13 @@ def test_plain_copy_equals_original(rel):
 
 @pytest.mark.parametrize("rel", sorted(SEAMS))
 def test_seam_module_differs_only_where_named(rel):
-    differ, left_out = SEAMS[rel]
+    differ, left_out, added = SEAMS[rel]
     ref = _defs(_as_copied(_read(REF, rel)))
     port = _defs(_read(PORT, rel))
     assert set(ref) - set(port) == left_out
-    assert set(port) <= set(ref), "the copy defines what the original lacks"
-    changed = {name for name in port if port[name] != ref[name]}
+    assert set(port) - set(ref) == added
+    changed = {name for name in set(port) & set(ref)
+               if port[name] != ref[name]}
     assert changed == differ
 
 
@@ -136,7 +149,9 @@ def test_every_host_module_of_the_port_is_listed():
            "ops/drain.py", "ops/greedy_dp.py", "ops/greedy_fused.py",
            "ops/_replay.py", "ops/bridge_topk.py", "ops/support.py",
            "ops/ladder_kernel.py",
-           "ops/ladder_device.py"}
+           "ops/ladder_device.py", "ops/coverage.py", "ops/bridge_dp.py",
+           "ops/mfu.py", "ops/crossover.py", "parallel/mesh.py",
+           "graft_entry.py"}
     found = set()
     pkg = os.path.join(REPO, PORT)
     for d, _, files in os.walk(pkg):
@@ -236,9 +251,10 @@ def _splice_lists(rng, n, n_pos, dup=0.3):
                                           (130, 200, 4), (300, 150, 5)])
 @pytest.mark.parametrize("min_similarity", [0.2, 0.9])
 def test_similarity_pair_lists_equal(n, n_pos, seed, min_similarity):
-    """The port's host form gives the JAX package's pair lists exactly,
-    below 48 bundles (its host form) and from 48 up (its device forms, run
-    by XLA on the CPU here): same pairs, same order, same floats."""
+    """The port gives the JAX package's pair lists exactly, below 48
+    bundles (the host form of both) and from 48 up (the device forms of
+    both, PyTorch and XLA on the CPU here): same pairs, same order, same
+    floats."""
     lists = _splice_lists(np.random.default_rng(seed), n, n_pos)
     want = ref_similarity.pairwise_splice_similarity(lists, min_similarity)
     got = port_similarity.pairwise_splice_similarity(lists, min_similarity)
@@ -257,7 +273,8 @@ def test_similarity_trivial_inputs():
 @pytest.mark.parametrize("n_bundles", [3, 64])
 def test_similarity_gate_agrees(mode, env, n_bundles, monkeypatch):
     """BundleGroup._use_device_similarity asks each package's own
-    device_wave.auto_device_ok; on a CPU backend both say no."""
+    device_wave.auto_device_ok (the port's about similarity's own fit); on
+    a CPU backend and on the port's CPU device both say no."""
     if env is None:
         monkeypatch.delenv("ALETSCH_DEVICE", raising=False)
     else:
@@ -270,7 +287,7 @@ def test_similarity_gate_agrees(mode, env, n_bundles, monkeypatch):
         g.gset = [None] * n_bundles
         answers.append(g._use_device_similarity())
     assert answers[0] == answers[1]
-    assert port_wave.auto_device_ok(cfg, n_bundles) is False
+    assert port_wave.auto_device_ok(cfg, n_bundles, "similarity") is False
 
 
 def test_tracer_refuses_a_device_trace(tmp_path):
