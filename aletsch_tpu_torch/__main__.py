@@ -1,9 +1,13 @@
 """CLI entry point of the port: python -m aletsch_tpu_torch -i bam.list -o out.gtf
 
 Counterpart of aletsch_tpu/__main__.py: same flags and outputs.  The
-device comes from ALETSCH_TORCH_DEVICE (default cuda).  The multi-process
-and multi-host flags (--jobs N>1, --shard, --merge_shards, --jax_dist*) are
-parsed as there and refused with exit code 2: parallel/ is not ported yet.
+device comes from ALETSCH_TORCH_DEVICE (default cuda).  Region sharding
+and single-host multi-process execution run as there (parallel/):
+  --shard <h> <H> --shard_dump <path>   assemble shard h of H, dump sets
+  --merge_shards <p1,p2,...>            merge shard dumps, write outputs
+  --jobs <N>                            single-host N-process execution
+--jax_dist and --jax_dist_launch are parsed as there and refused with exit
+code 2: the process group is not ported yet.
 """
 
 import sys
@@ -53,20 +57,31 @@ def main(argv=None):
     if len(argv) == 0:
         print_help()
         return 0
-    argv, shard, _dump, merge, jobs, jaxdist = _extract_shard_args(argv)
-    for flag, given in (("--jax_dist", jaxdist is not None),
-                        ("--merge_shards", merge is not None),
-                        ("--shard", shard is not None),
-                        ("--jobs", jobs is not None and jobs > 1)):
-        if given:
-            print("%s is not yet ported to aletsch_tpu_torch "
-                  "(ROADMAP Queue 1 item 11)" % flag, file=sys.stderr)
-            return 2
+    argv, shard, dump, merge, jobs, jaxdist = _extract_shard_args(argv)
+    if jaxdist is not None:
+        print("--jax_dist and --jax_dist_launch are not yet ported to "
+              "aletsch_tpu_torch (ROADMAP Queue 1 item 5)", file=sys.stderr)
+        return 2
     params = parse_all(argv)
     cfg = params[DEFAULT]
+    if merge is not None:
+        from .parallel.distributed import merge_shards
+        merge_shards(params, merge)
+        return 0
+    if shard is not None:
+        from .parallel.distributed import run_region_shard
+        if not dump:
+            print("--shard requires --shard_dump <path>")
+            return 1
+        run_region_shard(params, shard[0], shard[1], dump)
+        return 0
     if not cfg.profile_only and not cfg.output_gtf_file:
         print_help()
         return 1
+    if jobs is not None and jobs > 1 and not cfg.profile_only:
+        from .parallel.jobs import run_parallel
+        run_parallel(params, jobs)
+        return 0
     Incubator(params).resolve()
     if cfg.verbose >= 1:
         print("[aletsch_tpu_torch] device: %s" % device_wave.device_stats(),

@@ -3,19 +3,20 @@
 ALETSCH_TORCH_DEVICE names it ("cuda", "cuda:1", "cpu"); the default is
 "cuda".  Asking for CUDA on a machine without a usable card raises: nothing
 moves to the CPU by itself.  The CPU tests set "cpu", where every kernel
-wrapper runs its plain PyTorch version.
+wrapper runs its plain PyTorch version.  torch is imported when the device
+is first asked for: the package imports this module, and a run that never
+engages the card never loads torch.
 """
 
 from __future__ import annotations
 
 import os
 
-import torch
-
 ENV = "ALETSCH_TORCH_DEVICE"
 
 
 def device():
+    import torch
     dev = torch.device(os.environ.get(ENV, "cuda"))
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("%s=%s: the port runs on cuda or cpu" % (ENV, dev))

@@ -48,18 +48,12 @@ build its solver raises.
 from __future__ import annotations
 
 import os
+import sys
 import threading
 
-from ..ops import bottleneck as bottleneck_ops
-from ..ops import crossover
-from ..ops import drain as drain_ops
+from ..device import ENV as DEVICE_ENV
 from ..ops import similarity as similarity_ops
-from ..ops.bridge_topk import DeviceBridge, K, S
-from ..ops.greedy_dp import DeviceGreedy
-from ..ops.greedy_fused import DeviceGreedyFused, device_f64_exact
-from ..ops.ladder_device import DeviceLadder
-from ..ops.support import DeviceSupport
-from ..utils.tracing import TRACE_UNPORTED
+from ..ops.constants import BRIDGE_K as K, BRIDGE_S as S
 from . import native_core
 
 stats = {
@@ -89,11 +83,11 @@ _AUTO_LOCK = threading.Lock()   # waves are gated on two threads
 policy = {}
 
 
-def check_supported(cfg):
-    """Raise NotImplementedError for what is asked for but not ported
-    yet: a device trace."""
-    if getattr(cfg, "jax_profile_dir", ""):
-        raise NotImplementedError(TRACE_UNPORTED)
+def _cpu_device():
+    """Whether ALETSCH_TORCH_DEVICE (device.py; default cuda) names the
+    CPU, read from the string alone, as the JAX package reads
+    JAX_PLATFORMS: nothing imports torch to answer it."""
+    return os.environ.get(DEVICE_ENV, "cuda").split(":")[0].strip() == "cpu"
 
 
 def auto_calibration(cfg):
@@ -113,7 +107,11 @@ def auto_calibration(cfg):
     global _AUTO_CAL
     with _AUTO_LOCK:
         if _AUTO_CAL == ("unset",):
-            _AUTO_CAL = crossover.calibration(measure_if_missing=True)
+            if _cpu_device():
+                _AUTO_CAL = None
+            else:
+                from ..ops import crossover
+                _AUTO_CAL = crossover.calibration(measure_if_missing=True)
         return _AUTO_CAL
 
 
@@ -129,7 +127,11 @@ def auto_device_ok(cfg, n_graphs=64, stage="drain"):
     """True iff the measured model predicts a device win for `stage` at
     n_graphs instances (crossover.stage_wins: the stage's own fit, and for
     the stages that run inside a device wave the drain's too)."""
-    ok = crossover.stage_wins(stage, n_graphs, auto_calibration(cfg))
+    cal = auto_calibration(cfg)
+    ok = False
+    if cal is not None:
+        from ..ops import crossover
+        ok = crossover.stage_wins(stage, n_graphs, cal)
     policy.setdefault(stage, {})[int(n_graphs)] = ok
     return ok
 
@@ -144,7 +146,6 @@ def enabled(cfg, n_groups):
     env = os.environ.get("ALETSCH_DEVICE")
     if env == "0":
         return False
-    check_supported(cfg)
     mode = getattr(cfg, "device_greedy", "off")
     if env == "1" or mode == "on" or bridge_enabled(cfg, n_groups) \
             or support_enabled(cfg, n_groups) \
@@ -227,6 +228,7 @@ def require_native():
 def _get_device():
     global _DEVICE
     if _DEVICE is None:
+        from ..ops.greedy_dp import DeviceGreedy
         _DEVICE = DeviceGreedy()
     return _DEVICE
 
@@ -234,6 +236,7 @@ def _get_device():
 def _get_fused_device():
     global _FUSED, _FUSED_TRUST
     if _FUSED is None:
+        from ..ops.greedy_fused import DeviceGreedyFused, device_f64_exact
         _FUSED_TRUST = device_f64_exact()
         _FUSED = DeviceGreedyFused()
     return _FUSED
@@ -242,6 +245,7 @@ def _get_fused_device():
 def _get_bridge_device():
     global _BRIDGE
     if _BRIDGE is None:
+        from ..ops.bridge_topk import DeviceBridge
         _BRIDGE = DeviceBridge()
     return _BRIDGE
 
@@ -249,6 +253,7 @@ def _get_bridge_device():
 def _get_support_device():
     global _SUPPORT
     if _SUPPORT is None:
+        from ..ops.support import DeviceSupport
         _SUPPORT = DeviceSupport()
     return _SUPPORT
 
@@ -256,6 +261,8 @@ def _get_support_device():
 def _get_ladder_device():
     global _LADDER, _LADDER_TRUST
     if _LADDER is None:
+        from ..ops.greedy_fused import device_f64_exact
+        from ..ops.ladder_device import DeviceLadder
         _LADDER_TRUST = device_f64_exact()
         _LADDER = DeviceLadder()
     return _LADDER
@@ -273,10 +280,18 @@ def reset_solvers():
         similarity_ops.stats[k] = 0
 
 
+def _launches(module, wrapper):
+    """A kernel wrapper's launch count; 0 while its module is not loaded
+    (nothing could have launched it), so that reading the stats imports
+    no torch."""
+    mod = sys.modules.get("aletsch_tpu_torch.ops." + module)
+    return getattr(mod, wrapper).launches if mod is not None else 0
+
+
 def device_stats():
     d = dict(stats)
-    d["drain_launches"] = drain_ops.drain_cuda.launches
-    d["bottleneck_launches"] = bottleneck_ops.bottleneck_cuda.launches
+    d["drain_launches"] = _launches("drain", "drain_cuda")
+    d["bottleneck_launches"] = _launches("bottleneck", "bottleneck_cuda")
     for s in (_DEVICE, _FUSED, _BRIDGE, _SUPPORT, _LADDER):
         if s is not None:
             d.update(s.stats)

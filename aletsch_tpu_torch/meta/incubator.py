@@ -14,11 +14,9 @@ wave at a time and merges functionally):
    (incubator.cc:673-796)
 
 Counterpart of aletsch_tpu/meta/incubator.py, the same code except where
-the port's device side or its missing modules show: a device stage that is
-not ported is refused when the incubator is made; device_wave and the
-tracer are the port's; a device wave's failure propagates instead of
-falling back to the host branch; and samples are profiled on threads, not
-in parallel/worker.py subprocesses.
+the port's device side shows: device_wave and the tracer are the port's,
+and a device wave's failure propagates instead of falling back to the host
+branch.
 """
 
 from __future__ import annotations
@@ -41,6 +39,39 @@ from .transcript_store import new_transcript_set
 from ..utils.tracing import Tracer
 
 STRANDS = ("+", "-", ".")
+
+
+def _prep_samples_subprocess(params, samples, nw):
+    """Profile samples in parallel worker subprocesses."""
+    import pickle
+    import subprocess
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="aletsch_prof_") as tmp:
+        payload_path = os.path.join(tmp, "payload.pkl")
+        with open(payload_path, "wb") as fh:
+            pickle.dump({"params": params, "samples": samples}, fh)
+        outs = [os.path.join(tmp, "out%d.pkl" % i) for i in range(len(samples))]
+        pending = list(range(len(samples)))
+        running = []
+        repo_root = os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))))
+        while pending or running:
+            while pending and len(running) < nw:
+                i = pending.pop(0)
+                p = subprocess.Popen(
+                    [sys.executable, "-m", "aletsch_tpu_torch.parallel.worker",
+                     "profile", payload_path, str(i), outs[i]],
+                    cwd=repo_root)
+                running.append((i, p))
+            i, p = running.pop(0)
+            rc = p.wait()
+            if rc != 0:
+                raise RuntimeError("profile worker %d failed (%d)" % (i, rc))
+        result = []
+        for i in range(len(samples)):
+            with open(outs[i], "rb") as fh:
+                result.append(pickle.load(fh))
+        return result
 
 
 def _prep_sample(args):
@@ -97,7 +128,6 @@ def _limit_blas_threads():
 
 class Incubator:
     def __init__(self, params, region_filter=None):
-        device_wave.check_supported(params[DEFAULT])
         self.params = params
         self.samples = []
         self.sindex = {}           # chrm -> [(sid, tid)]
@@ -120,7 +150,7 @@ class Incubator:
             self._pool = ThreadPoolExecutor(max_workers=nw)
         return self._pool
 
-    # ---------------------------------------------------------------- resolve
+    # ---------------------------------------------------------------- driver
     def resolve(self, write_outputs=True, preprofiled=False):
         """incubator.cc:42-81 (phase lines mirror incubator.cc:73-78).
 
@@ -258,16 +288,21 @@ class Incubator:
         total_bytes = sum(os.path.getsize(sp.align_file)
                           for sp in self.samples
                           if os.path.exists(sp.align_file))
-        # Threads: the native previewer releases the GIL.  Without the
-        # native core the JAX package profiles large inputs in
-        # parallel/worker.py subprocesses and falls back to threads; the
-        # port has no parallel/ yet (ROADMAP Queue 1 item 11) and takes the
-        # threads, which give the same profiles.
+        # worker startup only pays off for real inputs; workers are plain
+        # subprocesses (see parallel/worker.py for why not multiprocessing).
+        # With the native previewer (GIL-releasing C), threads beat the
+        # ~1.5s/worker subprocess startup.
         from .native_core import native_core_available
-        if nw > 1 and (native_core_available()
-                       or total_bytes >= 16 * 1024 * 1024):
+        if nw > 1 and native_core_available():
             with ThreadPoolExecutor(max_workers=nw) as ex:
                 list(ex.map(prep, self.samples))
+        elif nw > 1 and total_bytes >= 16 * 1024 * 1024:
+            try:
+                self.samples = _prep_samples_subprocess(self.params,
+                                                        self.samples, nw)
+            except Exception:
+                with ThreadPoolExecutor(max_workers=nw) as ex:
+                    list(ex.map(prep, self.samples))
         else:
             for sp in self.samples:
                 prep(sp)

@@ -27,12 +27,14 @@ exact there too.  _counts pins allow_tf32 off all the same, so that the
 result never rests on which of the two the library picks.
 
 stats counts the dispatches of each form, as the solvers count theirs.
+torch is imported by the device forms only: meta/bundle_group.py imports
+this module in every run, and a run that keeps similarity on the host
+never loads torch.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..device import device as port_device
 
@@ -50,6 +52,7 @@ def _intersection_matrix_host(inc):
 
 def _counts(inc):
     """inc @ inc.T in f32 with TF32 off (see the module docstring)."""
+    import torch
     if inc.device.type != "cuda":
         return torch.matmul(inc, inc.T)
     was = torch.backends.cuda.matmul.allow_tf32
@@ -64,6 +67,7 @@ def _intersection_matrix_device(inc, device=None):
     """The dense form: inc [n, P] f32 numpy up, counts [n, n] f32 numpy
     down, C-contiguous.  No padding: the reference pads to 128-buckets
     for its compile cache, and nothing is compiled here."""
+    import torch
     dev = port_device() if device is None else torch.device(device)
     c = _counts(torch.from_numpy(np.ascontiguousarray(
         inc, dtype=np.float32)).to(dev))
@@ -76,6 +80,7 @@ def _sparse_candidates(rows, cols, sizes, thresh, n_splices, K):
     incidence; sizes: [n] int32; thresh: 0-dim f32.  Returns (idx [K] i64
     flat row-major pair indices in ascending order, dead tail 0; cv [K] f32
     counts; live [K] bool; nq 0-dim: how many pairs qualified)."""
+    import torch
     n = sizes.shape[0]
     dev = sizes.device
     inc = torch.zeros((n, n_splices), dtype=torch.float32, device=dev)
@@ -117,6 +122,7 @@ def _pairs_device_sparse(splice_lists, sizes, pidx, n_splices,
     reference's cap over its 128-padded n, which bounds the same download;
     no padding of n, P or nnz is kept, since padded rows exist there only
     to bound the number of compiled shapes."""
+    import torch
     dev = port_device() if device is None else torch.device(device)
     n = len(splice_lists)
     rows_l, cols_l = [], []

@@ -4,10 +4,11 @@ The reference's observability is printf-based: wall-clock `ctime` lines at
 phase boundaries (meta/incubator.cc:73-78), an RSS probe `check_memory_usage`
 (meta/generator.cc:27-31), and per-group stats summaries gated on `verbose`
 (meta/bundle_group.cc:360-393).  This module re-expresses that as a Tracer
-with nested phase timers and counters.  Counterpart of
-aletsch_tpu/utils/tracing.py without its jax.profiler capture: the hooks
-stay so the incubator reads the same, and --jax_profile_dir is refused until
-the torch.profiler capture is ported.
+with nested phase timers and counters, plus an optional device trace.
+Counterpart of aletsch_tpu/utils/tracing.py: where the JAX package captures
+a jax.profiler trace, the port captures a torch.profiler one into the same
+--jax_profile_dir (the flag keeps its name; the *.pt.trace.json file opens
+in TensorBoard and in Perfetto).
 
 Verbose levels follow the reference convention (util/parameters.cc:28):
   0 silent, 1 phase lines + final summary, 2 per-region lines,
@@ -19,10 +20,6 @@ from __future__ import annotations
 import sys
 import time
 from contextlib import contextmanager
-
-
-TRACE_UNPORTED = ("--jax_profile_dir: device tracing is not ported to "
-                  "aletsch_tpu_torch yet (ROADMAP Queue 1 item 11)")
 
 
 def rss_mb():
@@ -45,6 +42,7 @@ class Tracer:
         self.phase_times = {}
         self.t0 = time.perf_counter()
         self._jax_dir = jax_profile_dir
+        self._jax_active = False
 
     # ----------------------------------------------------------------- phases
     @contextmanager
@@ -98,13 +96,36 @@ class Tracer:
 
     # ------------------------------------------------- device profiler hooks
     def start_jax_trace(self):
-        """The JAX package captures a jax.profiler trace here.  The port has
-        no device trace yet, so a run that asks for one is refused."""
-        if self._jax_dir:
-            raise NotImplementedError(TRACE_UNPORTED)
+        """Optional device trace: a torch.profiler capture of the host's
+        activity, and of the card's where the port's device is a card,
+        written on stop by tensorboard_trace_handler into the directory
+        as <host>_<pid>.<ns>.pt.trace.json.  No shapes and no stacks, to
+        keep the file small.  On the CPU device no CUDA context is made.
+        torch is imported here only.  A failure propagates."""
+        if not self._jax_dir:
+            return
+        from torch.profiler import (ProfilerActivity, _ExperimentalConfig,
+                                    profile, tensorboard_trace_handler)
+
+        from ..device import device as port_device
+        activities = [ProfilerActivity.CPU]
+        if port_device().type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        # the region waves run on pool threads: record every thread's ops
+        prof = profile(activities=activities, on_trace_ready=
+                       tensorboard_trace_handler(self._jax_dir),
+                       experimental_config=_ExperimentalConfig(
+                           profile_all_threads=True))
+        prof.start()
+        self._jax_active = prof
 
     def stop_jax_trace(self):
-        """Nothing to stop: start_jax_trace never starts a capture."""
+        """Stop the capture start_jax_trace began (self._jax_active holds
+        its profiler) and write the trace file."""
+        if not self._jax_active:
+            return
+        prof, self._jax_active = self._jax_active, False
+        prof.stop()
 
 
 class NullTracer(Tracer):

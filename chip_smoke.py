@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --phases 3e,3f,3g]
 
 Phases, each of which exits non-zero on failure:
 1. environment: the card's name and power limit, the kernel build from
@@ -69,17 +69,16 @@ Phases, each of which exits non-zero on failure:
    tools/refbuild/baseline.py) through python -m aletsch_tpu with the
    device off (the reference bytes) and through the port's CLI with the
    drain forced onto the card at --max_num_exons 8.  Both CLIs run as
-   subprocesses, reference / port / reference, for comparable walls;
-   then the port runs once more in this process under the
-   profiler, with every launch count reset just before it.  Every
-   output file of every port run must be byte-identical to the
-   reference's, and the kernel must have carried the drain.  The
-   profiled run's device table is printed;
+   subprocesses, reference / port, for comparable walls; then the port
+   runs once more in this process under the profiler, with every launch
+   count reset just before it.  Every output file of every port run must
+   be byte-identical to the reference's, and the kernel must have carried
+   the drain.  The profiled run's device table is printed;
 3b. step path: the port's CLI once more with ALETSCH_DEVICE_GREEDY=step
-   (one bottleneck launch per extraction instead of the drain), as a
-   subprocess and then in this process under the profiler with the
-   counts reset; every output file byte-identical to the reference's, and
-   the bottleneck kernel must have carried every dispatch;
+   (one bottleneck launch per extraction instead of the drain), in this
+   process under the profiler with the counts reset; every output file
+   byte-identical to the reference's, and the bottleneck kernel must have
+   carried every dispatch;
 3c. the bridge, support and ladder stages on the card (--device_bridge on
    --device_support on --device_ladder on beside the forced drain): in
    this process with every count reset (trust mode), and once more in
@@ -101,11 +100,32 @@ Phases, each of which exits non-zero on failure:
    walls, the calibration's time, and for each stage its fit, what 'auto'
    answered and what it sent to the card.  Every answer must equal what
    the stage's own fit says, and no stage may reach the card whose fit
-   loses.  Then --device_similarity on on the same cohort, and once more
-   in this process on the 200-gene cohort with every subset of two or
-   more bundles sent to the card (the production cohort's subsets stay
-   below the 48 bundles from which the device forms run): byte-identical,
-   and the sparse form's counter must have grown.
+   loses.  Then --device_similarity on in this process on the 200-gene
+   cohort with every subset of two or more bundles sent to the card (the
+   production cohort's subsets stay below the 48 bundles from which the
+   device forms run): byte-identical, and the sparse form's counter must
+   have grown;
+3e. scoring on the card: python -m aletsch_tpu_torch.scoring.score and
+   python -m aletsch_tpu.scoring.score (jax unimportable, so its forest
+   runs _predict_numpy) on the feature CSVs of phase 3's port run with
+   tests/fixtures/rf_model_50f.npz: the scores CSV byte-identical, and
+   the port's forest counter must show the rows went to the card.  Then
+   in this process predict_proba against _predict_numpy, bit for bit, on
+   the fixture forest and on a seeded synthetic forest at the trainer's
+   defaults (100 trees, max_depth 20), at 256, 4,096 and 65,536 rows of
+   50 features: for each, the host clock of a call, its device time and
+   device kernels (profiler), and _predict_numpy's time;
+3f. the production cohort through python -m aletsch_tpu_torch --jobs 2
+   with the drain forced (the other stages off), jax and aletsch_tpu
+   unimportable in every process (a sitecustomize on the workers'
+   PYTHONPATH, which also prints each process's launch counts at exit):
+   every output byte-identical, and each shard worker must have launched
+   the drain kernel; then a --shard 0 2 / --shard 1 2 / --merge_shards
+   round on the 200-gene cohort, byte-identical;
+3g. the device trace: the forced drain on the 200-gene cohort in this
+   process with --jax_profile_dir: the bytes unchanged, one
+   *.pt.trace.json, and among its CUDA kernel events the drain kernel's
+   (at most one a launch: the profiler may drop some).
 
 The last lines are the card (nvidia-smi), one JSON line of the kernels
 and the JSON result line.  In the kernels line, "launches" counts each
@@ -124,7 +144,10 @@ both counted from this run's sinks and path counts.
 topological order with the drain's tie rule.  With --kernels-only the
 script stops after phase 2e, prints no result line and exits 0: a short
 first check of a changed kernel, and a way to time two checkouts in turns
-on one card.  This script imports only the port; the JAX package runs
+on one card.  --phases runs phase 1 and then only the phases named (of
+3e, 3f and 3g) on the 200-gene cohort, with one reference and one forced
+port run to feed them, and prints no result line: a short check of those
+phases.  This script imports only the port; the JAX package runs
 as a subprocess.  jax and aletsch_tpu are made unimportable first: the port
 never uses either.
 """
@@ -1161,7 +1184,7 @@ def main_path(forms, genes=GENES, samples=SAMPLES):
 
         walls = {"reference": [], "port": []}
         ref = None
-        for i, side in enumerate(("reference", "port", "reference")):
+        for i, side in enumerate(("reference", "port")):
             out = os.path.join(tmp, "%s%d" % (side, i))
             if side == "reference":
                 walls[side].append(_subprocess_wall(
@@ -1196,32 +1219,28 @@ def main_path(forms, genes=GENES, samples=SAMPLES):
         res["rows"] = _profile_rows(prof)
         print(prof.key_averages().table(sort_by="self_device_time_total",
                                         row_limit=12), flush=True)
-        res["step"] = step_path(tmp, lst, ref, env)
+        res["step"] = step_path(tmp, lst, ref)
         res["new"] = new_path(tmp, lst, ref, env, forms, genes, samples)
-        res["default"] = default_path(tmp, lst, ref, env,
-                                      res["new"].pop("small"),
-                                      res["new"].pop("small_ref"))
+        small = res["new"].pop("small")
+        small_ref = res["new"].pop("small_ref")
+        res["default"] = default_path(tmp, lst, ref, env, small, small_ref)
+        res["scoring"] = scoring_path(tmp, os.path.join(tmp, "port1", "gtf"),
+                                      samples, env)
+        res["jobs"] = jobs_path(tmp, lst, ref, env, small, small_ref)
+        res["trace"] = trace_path(tmp, small, small_ref)
     res["walls"] = walls
     return res
 
 
-def step_path(tmp, lst, ref, env):
-    """Phase 3b: the port's CLI in step mode, as a subprocess and then in
-    this process under the profiler with the counts reset."""
+def step_path(tmp, lst, ref):
+    """Phase 3b: the port's CLI in step mode, in this process under the
+    profiler with the counts reset."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from aletsch_tpu_torch import __main__ as port_main
     from aletsch_tpu_torch.meta import device_wave
     res = {}
-    out = os.path.join(tmp, "step_subprocess")
-    res["wall"] = _subprocess_wall(
-        "aletsch_tpu_torch", lst, out, DEVICE_ARGS,
-        dict(env, ALETSCH_TORCH_DEVICE="cuda", ALETSCH_DEVICE_GREEDY="step"))
-    _require_same(_outputs(out), ref, "the step-mode port run")
-    log("step mode subprocess wall %.2f s; every output byte-identical "
-        "(%d files)" % (res["wall"], len(ref)))
-
     out = os.path.join(tmp, "step_profiled")
     args = ["-i", lst, *_cli_args(out), *DEVICE_ARGS]
     os.environ["ALETSCH_DEVICE_GREEDY"] = "step"
@@ -1405,8 +1424,9 @@ def _sent(st, stage):
 
 def default_path(tmp, lst, ref, env, small, small_ref):
     """Phase 3d: the production cohort through the port's CLI at its
-    defaults ('auto' everywhere), its ALETSCH_DEVICE=0 twin, and
-    --device_similarity on."""
+    defaults ('auto' everywhere) and its ALETSCH_DEVICE=0 twin; then
+    --device_similarity on in this process on the small cohort with every
+    subset on the card."""
     from aletsch_tpu_torch.ops import crossover
     from aletsch_tpu_torch.ops import similarity as SM
     policy_tmp = os.path.join(tmp, "policy_tmp")
@@ -1476,19 +1496,8 @@ def default_path(tmp, lst, ref, env, small, small_ref):
                p["asked"], "%d to %d" % p["sizes"] if p["sizes"] else "none",
                p["yes"], sent))
 
-    # --device_similarity on, the other stages on 'auto'
-    out = os.path.join(tmp, "default_similarity")
-    res["wall_similarity"], st_sim = _default_run(
-        lst, out, cuda_env, ["--device_similarity", "on"])
-    _require_same(_outputs(out), ref, "the --device_similarity on run")
-    res["similarity_stats"] = {k: st_sim.get(k, 0) for k in SM.stats}
-    log("--device_similarity on, production cohort: wall %.2f s, "
-        "byte-identical; device forms run: %s (a subset of fewer than %d "
-        "bundles stays in numpy)"
-        % (res["wall_similarity"], res["similarity_stats"],
-           SM._DEVICE_THRESHOLD))
-    # the same stage with every subset of two or more bundles sent to the
-    # card, in this process on the small cohort
+    # --device_similarity on with every subset of two or more bundles sent
+    # to the card, in this process on the small cohort
     th = SM._DEVICE_THRESHOLD
     SM._DEVICE_THRESHOLD = 2
     try:
@@ -1508,14 +1517,285 @@ def default_path(tmp, lst, ref, env, small, small_ref):
     return res
 
 
+# ------------------------------------------------------------ phase 3e
+# A sitecustomize for the port's subprocesses: jax and aletsch_tpu cannot
+# be imported there (nor in the processes they spawn, which inherit
+# PYTHONPATH), and at exit each process prints its kernel launches and
+# forest dispatches as one stderr line, read by phases 3e and 3f.
+CHILD_SHIM = """import sys
+for _m in %r:
+    sys.modules[_m] = None
+
+
+def _report():
+    import json
+    counts = {}
+    for mod, wrapper in (("drain", "drain_cuda"),
+                         ("bottleneck", "bottleneck_cuda")):
+        m = sys.modules.get("aletsch_tpu_torch.ops." + mod)
+        counts[mod] = getattr(m, wrapper).launches if m else 0
+    f = sys.modules.get("aletsch_tpu_torch.scoring.forest")
+    if f is not None:
+        counts.update(f.stats)
+    print("[chip_smoke child] %%s %%s" %% (" ".join(sys.argv[1:2]) or "-",
+                                         json.dumps(counts)),
+          file=sys.stderr, flush=True)
+
+
+import atexit
+atexit.register(_report)
+"""
+CHILD_RE = re.compile(r"^\[chip_smoke child\] (\S+) (\{.*\})$", re.M)
+FOREST_ROWS = (256, 4096, 65536)
+
+
+def _child_env(tmp, env, blocked=("jax", "aletsch_tpu")):
+    """env with CHILD_SHIM first on PYTHONPATH, blocking `blocked`."""
+    shim = tempfile.mkdtemp(prefix="shim_", dir=tmp)
+    with open(os.path.join(shim, "sitecustomize.py"), "w") as fh:
+        fh.write(CHILD_SHIM % (tuple(blocked),))
+    return dict(env, ALETSCH_TORCH_DEVICE="cuda",
+                PYTHONPATH=os.pathsep.join([shim, REPO]))
+
+
+def _child_run(argv, env):
+    """(wall, [(role, counts)] of every process that reported) of one
+    subprocess run of `python -m argv...`."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *argv], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    require(res.returncode == 0, "python -m %s failed: %s"
+            % (" ".join(argv[:1]), res.stderr[-2000:]))
+    return wall, [(role, json.loads(c))
+                  for role, c in CHILD_RE.findall(res.stderr)]
+
+
+def _forest_times(tag, fa, n, seed):
+    """predict_proba on the card against _predict_numpy on n seeded rows,
+    bit for bit; the host clock of a call, the device time and device
+    kernels and copies of one call, and _predict_numpy's time."""
+    import numpy as np
+
+    from aletsch_tpu_torch.scoring import forest as F
+    X = np.random.default_rng(seed).standard_normal((n, 50)) \
+        .astype(np.float32)
+    t0 = time.perf_counter()
+    want = F._predict_numpy(fa, X)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    d0 = F.stats["forest_dispatches"]
+    got = F.predict_proba(fa, X)
+    require(F.stats["forest_dispatches"] == d0 + 1,
+            "%s, %d rows: predict_proba did not dispatch to the card"
+            % (tag, n))
+    require(got.dtype == want.dtype == np.float32
+            and np.array_equal(got.view(np.int32), want.view(np.int32)),
+            "%s, %d rows: the card's probabilities differ from "
+            "_predict_numpy (max |diff| %g)"
+            % (tag, n, float(np.abs(got - want).max())))
+    t = {"rows": n, "numpy_ms": numpy_ms,
+         "host_ms": _host_ms(lambda: F.predict_proba(fa, X), 5)}
+    t["device_ms"], t["kernels"] = _dispatch_profile(
+        lambda: F.predict_proba(fa, X))
+    return t
+
+
+def scoring_path(tmp, gtf_dir, samples, env):
+    """Phase 3e: the score CLIs on the feature CSVs of `gtf_dir`, then the
+    forest on the card against _predict_numpy, timed."""
+    import numpy as np
+
+    from aletsch_tpu_torch.scoring import forest as F
+    from aletsch_tpu_torch.scoring import score as S
+    t0 = time.perf_counter()
+    model = os.path.join(REPO, "tests", "fixtures", "rf_model_50f.npz")
+    res = {}
+    out = {}
+    for side, module, cenv in (
+            ("port", "aletsch_tpu_torch.scoring.score", _child_env(tmp, env)),
+            ("reference", "aletsch_tpu.scoring.score",
+             _child_env(tmp, env, blocked=("jax",)))):
+        out[side] = os.path.join(tmp, "scores_%s.csv" % side)
+        res[side + "_wall"], reports = _child_run(
+            [module, "-i", gtf_dir, "-m", model, "-c", str(samples), "-o",
+             out[side], "-p", "0.0"], cenv)
+        if side == "port":
+            res["cli_counts"] = reports[-1][1]
+    with open(out["port"], "rb") as fh:
+        got = fh.read()
+    with open(out["reference"], "rb") as fh:
+        want = fh.read()
+    require(got == want, "the port's scores CSV differs from the "
+            "reference's")
+    meta, X = S.load_feature_rows(gtf_dir, samples)
+    fa = F.ForestArrays.load(model)
+    res["csv_rows"], res["meta_tids"] = len(meta), got.count(b"\n") - 1
+    c = res["cli_counts"]
+    if len(meta) >= 256:
+        require(c.get("forest_dispatches") == 1
+                and c.get("forest_rows") == len(meta),
+                "the score CLI's forest did not run on the card: %s" % c)
+    else:
+        # below 256 rows both packages score in numpy: run the card path
+        # on the same rows in this process
+        p = F._get_torch_predict(fa.max_depth)(
+            fa.feature, fa.threshold, fa.left, fa.right, fa.prob, X)
+        require(np.array_equal(p.view(np.int32),
+                               F._predict_numpy(fa, X).view(np.int32)),
+                "the card's probabilities differ from _predict_numpy")
+    log("score CLIs on the %d feature rows (%d meta transcripts) of the "
+        "port's run: scores CSV byte-identical (%d bytes); port wall %.2f "
+        "s, reference wall %.2f s; the port's forest: %s"
+        % (len(meta), res["meta_tids"], len(got), res["port_wall"],
+           res["reference_wall"], c))
+    res["times"] = {}
+    for tag, forest in (("fixture", fa), ("synthetic", F.synthetic_forest())):
+        for n in FOREST_ROWS:
+            r = _forest_times(tag, forest, n, seed=n)
+            res["times"][tag, n] = r
+            log("forest %s (%d trees, %d nodes, max_depth %d), %d rows: "
+                "card == _predict_numpy bit for bit; host clock %.3f ms a "
+                "call (median of 5), device %s in %d kernels and copies; "
+                "_predict_numpy %.3f ms"
+                % (tag, forest.feature.shape[0], forest.feature.shape[1],
+                   forest.max_depth, n, r["host_ms"],
+                   "%.3f ms" % r["device_ms"] if r["device_ms"] is not None
+                   else "not measured", r["kernels"], r["numpy_ms"]))
+    log("phase 3e took %.1f s" % (time.perf_counter() - t0))
+    return res
+
+
+# ------------------------------------------------------------ phase 3f
+def jobs_path(tmp, lst, ref, env, small, small_ref):
+    """Phase 3f: --jobs 2 on the production cohort, then a --shard /
+    --merge_shards round on the small cohort."""
+    t0 = time.perf_counter()
+    cenv = _child_env(tmp, env)
+    res = {}
+    out = os.path.join(tmp, "jobs2")
+    res["wall"], reports = _child_run(
+        ["aletsch_tpu_torch", "-i", lst, *_cli_args(out), *DEVICE_ARGS,
+         "--jobs", "2"], cenv)
+    _require_same(_outputs(out), ref, "the --jobs 2 run")
+    workers = [c for role, c in reports if role == "shard"]
+    require(len(workers) == 2 and all(c["drain"] > 0 for c in workers),
+            "each --jobs worker must launch the drain kernel: %s" % reports)
+    res["worker_launches"] = [c["drain"] for c in workers]
+    log("--jobs 2, drain forced: wall %.2f s; every "
+        "output byte-identical (%d files); drain launches per worker %s"
+        % (res["wall"], len(ref), res["worker_launches"]))
+    dumps = [os.path.join(tmp, "shard%d.pkl" % h) for h in range(2)]
+    procs = []
+    t1 = time.perf_counter()
+    for h in range(2):
+        out = os.path.join(tmp, "shard%d" % h)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "aletsch_tpu_torch", "-i", small,
+             *_cli_args(out), *DEVICE_ARGS, "--shard", str(h), "2",
+             "--shard_dump", dumps[h]], cwd=REPO, env=cenv,
+            stderr=subprocess.PIPE, text=True))
+    shard_launches = []
+    for p in procs:
+        _, err = p.communicate(timeout=900)
+        require(p.returncode == 0, "a --shard run failed: %s" % err[-2000:])
+        shard_launches += [json.loads(c)["drain"]
+                           for _, c in CHILD_RE.findall(err)]
+    out = os.path.join(tmp, "merged")
+    merge_wall, _ = _child_run(
+        ["aletsch_tpu_torch", "-i", small, *_cli_args(out), *DEVICE_ARGS,
+         "--merge_shards", ",".join(dumps)], cenv)
+    _require_same(_outputs(out), small_ref, "the merged shards")
+    res["shard_wall"] = time.perf_counter() - t1
+    res["shard_launches"] = shard_launches
+    log("--shard 0 2 / --shard 1 2 (side by side) and --merge_shards, "
+        "%d-gene cohort: %.2f s (the merge %.2f s); every output "
+        "byte-identical (%d files); drain launches per shard %s"
+        % (VERIFY_GENES, res["shard_wall"], merge_wall, len(small_ref),
+           shard_launches))
+    log("phase 3f took %.1f s" % (time.perf_counter() - t0))
+    return res
+
+
+# ------------------------------------------------------------ phase 3g
+def trace_path(tmp, small, small_ref):
+    """Phase 3g: the forced drain with --jax_profile_dir, in this process;
+    the trace must hold the drain kernel's events."""
+    import glob
+
+    from aletsch_tpu_torch import __main__ as port_main
+    t0 = time.perf_counter()
+    trace_dir = os.path.join(tmp, "trace")
+    out = os.path.join(tmp, "traced")
+    _reset_launches()
+    require(port_main.main(["-i", small, *_cli_args(out), *DEVICE_ARGS,
+                            "--jax_profile_dir", trace_dir]) == 0,
+            "the traced port run failed")
+    launches = _launches()["drain"]
+    _require_same(_outputs(out), small_ref, "the traced run")
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    require(len(files) == 1, "the traced run left %d trace files" % len(files))
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    drains = [e for e in kernels if "drain_kernel" in e.get("name", "")]
+    # the profiler may drop device events in a long process (one run kept
+    # 228 of 236), so the trace must hold drain kernels, not every one
+    require(0 < len(drains) <= launches,
+            "the trace holds %d drain kernel events for %d launches"
+            % (len(drains), launches))
+    res = {"bytes": os.path.getsize(files[0]), "events": len(events),
+           "kernels": len(kernels), "drain_events": len(drains),
+           "drain_us": sum(e.get("dur", 0) for e in drains)}
+    log("--jax_profile_dir, %d-gene cohort, drain forced: byte-identical; "
+        "%s: %d bytes, %d events, %d CUDA kernel events, %d of them the "
+        "drain kernel's (%d launches, %.1f us)"
+        % (VERIFY_GENES, os.path.basename(files[0]), res["bytes"],
+           res["events"], res["kernels"], res["drain_events"], launches,
+           res["drain_us"]))
+    log("phase 3g took %.1f s" % (time.perf_counter() - t0))
+    return res
+
+
+def new_phases(phases, genes=VERIFY_GENES, samples=SAMPLES):
+    """--phases: one reference and one forced port run on the small
+    cohort, then the phases named, on it."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with tempfile.TemporaryDirectory(prefix="aletsch_chip_smoke_") as tmp:
+        lst = _build_cohort(os.path.join(tmp, "cohort"), genes, samples, env)
+        out = os.path.join(tmp, "reference0")
+        wall = _subprocess_wall("aletsch_tpu", lst, out, HOST_ARGS, env)
+        ref = _outputs(out)
+        out = os.path.join(tmp, "port1")
+        port_wall = _subprocess_wall("aletsch_tpu_torch", lst, out,
+                                     DEVICE_ARGS,
+                                     dict(env, ALETSCH_TORCH_DEVICE="cuda"))
+        _require_same(_outputs(out), ref, "the port run")
+        log("%d-gene cohort: reference wall %.2f s, forced port wall %.2f s, "
+            "byte-identical" % (genes, wall, port_wall))
+        if "3e" in phases:
+            scoring_path(tmp, os.path.join(out, "gtf"), samples, env)
+        if "3f" in phases:
+            jobs_path(tmp, lst, ref, env, lst, ref)
+        if "3g" in phases:
+            trace_path(tmp, lst, ref)
+
+
+NEW_PHASES = ("3e", "3f", "3g")
+
+
 def main(argv=None):
     import torch
+    t_start = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--kernels-only"]):
-        print("usage: python3 chip_smoke.py [--kernels-only]",
-              file=sys.stderr)
+    phases = None
+    if len(argv) == 2 and argv[0] == "--phases":
+        phases = argv[1].split(",")
+    if not (argv in ([], ["--kernels-only"]) or phases
+            and set(phases) <= set(NEW_PHASES)):
+        print("usage: python3 chip_smoke.py [--kernels-only | --phases "
+              "%s]" % ",".join(NEW_PHASES), file=sys.stderr)
         return 2
-    kernels_only = bool(argv)
+    kernels_only = argv == ["--kernels-only"]
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1529,6 +1809,11 @@ def main(argv=None):
     dev = torch.device("cuda")
     try:
         smi, name = environment()
+        if phases:
+            new_phases(phases)
+            log("--phases %s: done in %.1f s; no result line"
+                % (",".join(phases), time.perf_counter() - t_start))
+            return 0
         err, times = kernel_vs_plain(dev)
         bn_err, pos_launches, bn_times = bottleneck_vs_plain(dev)
         forms = torch_forms_vs_oracles(dev)
@@ -1607,9 +1892,17 @@ def main(argv=None):
                               nst["ladder_decisions"], nst["ladder_agree"],
                               nst["ladder_total"])
                            if form == "ladder" else ""))
+        sc, jobs, tr = res["scoring"], res["jobs"], res["trace"]
+        log("new phases on %s: scores CSV byte-identical over %d feature "
+            "rows; --jobs 2 wall %.2f s against the one-process forced "
+            "port's %.2f s, drain launches per worker %s; the trace holds "
+            "%d drain kernel events (%d bytes)"
+            % (name, sc["csv_rows"], jobs["wall"], res["walls"]["port"][0],
+               jobs["worker_launches"], tr["drain_events"], tr["bytes"]))
     except SmokeFailure as e:
         print("chip_smoke: FAIL: %s" % e, file=sys.stderr)
         return 1
+    log("the whole script took %.1f s" % (time.perf_counter() - t_start))
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "drain",

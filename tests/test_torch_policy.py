@@ -79,7 +79,10 @@ def _fake_calibration(card="Fake H100"):
 
 def _as_cuda(monkeypatch, card="Fake H100"):
     """Make the policy believe it runs on a card named `card`; measuring
-    is forbidden unless the test replaces measure_policy."""
+    is forbidden unless the test replaces measure_policy.  device_wave
+    reads the device's name from ALETSCH_TORCH_DEVICE, and crossover asks
+    platform_name."""
+    monkeypatch.setenv("ALETSCH_TORCH_DEVICE", "cuda")
     monkeypatch.setattr(crossover, "platform_name", lambda device=None: "cuda")
     monkeypatch.setattr(crossover, "card_name", lambda device=None: card)
 
