@@ -6,8 +6,14 @@ and single-host multi-process execution run as there (parallel/):
   --shard <h> <H> --shard_dump <path>   assemble shard h of H, dump sets
   --merge_shards <p1,p2,...>            merge shard dumps, write outputs
   --jobs <N>                            single-host N-process execution
---jax_dist and --jax_dist_launch are parsed as there and refused with exit
-code 2: the process group is not ported yet.
+  --jax_dist <pid> <P> <host:port>      a torch.distributed (gloo) process
+                                        group: this process assembles
+                                        shard pid of P and the shard
+                                        payloads ride collectives
+                                        (parallel/jaxdist.py); process 0
+                                        writes the merged outputs
+  --jax_dist_launch <N>                 spawn the N-process group locally
+                                        on a free port and wait
 """
 
 import sys
@@ -58,12 +64,16 @@ def main(argv=None):
         print_help()
         return 0
     argv, shard, dump, merge, jobs, jaxdist = _extract_shard_args(argv)
-    if jaxdist is not None:
-        print("--jax_dist and --jax_dist_launch are not yet ported to "
-              "aletsch_tpu_torch (ROADMAP Queue 1 item 5)", file=sys.stderr)
-        return 2
     params = parse_all(argv)
     cfg = params[DEFAULT]
+    if jaxdist is not None:
+        if jaxdist[0] == "launch":
+            from .parallel.jaxdist import launch_jax_distributed
+            launch_jax_distributed(argv, jaxdist[1])
+        else:
+            from .parallel.jaxdist import run_jax_distributed
+            run_jax_distributed(params, jaxdist[0], jaxdist[1], jaxdist[2])
+        return 0
     if merge is not None:
         from .parallel.distributed import merge_shards
         merge_shards(params, merge)

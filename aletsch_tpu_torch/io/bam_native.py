@@ -5,15 +5,22 @@ batches through the C++ library: fixed int32 fields, cigar words, qnames and
 preparsed coordinate pools (match intervals, interior splices, indel
 intervals) arrive as flat arrays, so the per-record Python work is object
 assembly only; cigar tuples decode lazily.  Falls back transparently to the
-pure-Python reader when the shared library is unavailable.  Auto-builds
-native/libabam.so with make on first use.
+pure-Python reader when the shared library is unavailable.  Builds its
+own libabam.so from native/ on first use (_build_lib): under a lock, in a
+private copy of the sources, renamed into place under build/, so that no
+process ever loads a partly written library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
+import threading
 
 import numpy as np
 
@@ -21,10 +28,15 @@ from .bam import BamHeader, BamRec
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libabam.so")
+# the port's own build: the JAX package's loader makes native/libabam.so in
+# place, so a process that loads that file while another process links it
+# can read a partial library
+_BUILD_DIR = os.path.join(os.path.dirname(_NATIVE_DIR), "build",
+                          "aletsch_tpu_torch")
 
 _LIB = None
 _LIB_TRIED = False
+_LIB_LOCK = threading.Lock()     # a second thread waits for the first load
 
 BATCH = 4096
 FIXED_W = 24
@@ -33,16 +45,50 @@ Q_CAP = BATCH * 64
 COORD_CAP = BATCH * 40
 
 
+def _build_lib(native_dir=None, build_dir=None):
+    """Path of a whole libabam.so built from native_dir's sources (default
+    native/) into build_dir (default build/aletsch_tpu_torch/), named by a
+    hash of the sources.  The first process to need it builds it under an
+    exclusive lock, in a private copy of the sources, and renames it into
+    place: a file at that path is always complete, and concurrent processes
+    wait for the one build.  Raises when make fails."""
+    native_dir = _NATIVE_DIR if native_dir is None else native_dir
+    build_dir = _BUILD_DIR if build_dir is None else build_dir
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(native_dir)):
+        path = os.path.join(native_dir, name)
+        if os.path.isfile(path) and not name.endswith(".so"):
+            with open(path, "rb") as fh:
+                h.update(name.encode() + b"\0" + fh.read())
+    out = os.path.join(build_dir, "libabam_%s.so" % h.hexdigest()[:16])
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir, exist_ok=True)
+    with open(out + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)    # released when the file closes
+        if not os.path.exists(out):
+            with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+                src = os.path.join(tmp, "native")
+                shutil.copytree(native_dir, src,
+                                ignore=shutil.ignore_patterns("*.so"))
+                subprocess.run(["make", "-s", "-C", src], check=True,
+                               capture_output=True)
+                os.replace(os.path.join(src, "libabam.so"), out)
+    return out
+
+
 def _load_lib():
+    with _LIB_LOCK:
+        return _open_lib()
+
+
+def _open_lib():
     global _LIB, _LIB_TRIED
     if _LIB_TRIED:
         return _LIB
     _LIB_TRIED = True
     try:
-        if not os.path.exists(_SO_PATH):
-            subprocess.run(["make", "-s", "-C", _NATIVE_DIR],
-                           check=True, capture_output=True)
-        lib = ctypes.CDLL(_SO_PATH)
+        lib = ctypes.CDLL(_build_lib())
         lib.abam_open.restype = ctypes.c_void_p
         lib.abam_open.argtypes = [ctypes.c_char_p]
         lib.abam_close.argtypes = [ctypes.c_void_p]

@@ -162,7 +162,9 @@ def enabled(cfg, n_groups):
 
 def _stage_enabled(cfg, stage, default, available, n):
     """One stage's gate: 'on' or its env var at 1 force it, its env var at
-    0 turns it off, 'auto' asks the measured policy about n instances.  An
+    0 turns it off, 'auto' asks the measured policy about a wave of n
+    groups, and answers no without asking below device_min_groups (as the
+    drain's gate does), so a wave of few groups never calibrates.  An
     engaged stage whose native pause is missing raises."""
     attr = "device_" + stage
     mode = getattr(cfg, attr, default)
@@ -170,10 +172,11 @@ def _stage_enabled(cfg, stage, default, available, n):
     if env == "0":
         return False
     if env == "1" or mode == "on" \
-            or (mode == "auto" and auto_device_ok(cfg, n, stage)):
+            or (mode == "auto" and n >= getattr(cfg, "device_min_groups", 16)
+                and auto_device_ok(cfg, n, stage)):
         if not available():
             raise RuntimeError("--%s on needs the native core's %s pause "
-                               "(native/libabam.so, built by make -C native)"
+                               "(built from native/ by io/bam_native.py)"
                                % (attr, stage))
         return True
     return False
@@ -221,7 +224,7 @@ def require_native():
             and native_core.fused_available()
         what = "the device greedy drain needs the native core's fused export"
     if not ok:
-        raise RuntimeError("%s (native/libabam.so, built by make -C native)"
+        raise RuntimeError("%s (built from native/ by io/bam_native.py)"
                            % what)
 
 

@@ -53,6 +53,7 @@ import torch
 
 from ..device import device as port_device
 from ._replay import Replay, bucket
+from .meshing import account_out, join_rows, shard_args
 from .constants import (BRIDGE_B, BRIDGE_BIG, BRIDGE_E, BRIDGE_K, BRIDGE_S,
                         BRIDGE_SENTINEL, BRIDGE_T, BRIDGE_V)
 
@@ -202,25 +203,37 @@ class DeviceBridge:
         """(ostk [n,T,K,S], par [n,V,K], pix [n,V,K]) int32, C-contiguous
         host arrays, for the first nrows batch slots."""
         t0 = time.perf_counter()
-        if self._replays is None:
-            out = bridge_dp(*(t[:nrows].to(self.device, non_blocking=True)
-                              for t in self._stage))
-        else:
-            # rows behind the live ones ride along: stale but well-formed
-            rows = bucket(nrows, self.batch)
-            if rows not in self._replays:
-                bufs = tuple(t[:rows].to(self.device) for t in self._stage)
-                self._replays[rows] = (bufs, Replay(
-                    lambda: bridge_dp(*bufs), bufs))
-            bufs, graph = self._replays[rows]
-            for buf, t in zip(bufs, self._stage):
-                buf.copy_(t[:rows], non_blocking=True)
-            out = graph.replay()
-        ostk, par, pix = (t[:nrows].contiguous().cpu().numpy() for t in out)
+        # rows behind the live ones ride along in a replay: stale but
+        # well-formed
+        rows = nrows if self._replays is None else bucket(nrows, self.batch)
+        # several devices: the rows split over them (ops/meshing.py)
+        shards, split = shard_args([t[:rows] for t in self._stage],
+                                   self.stats, self.device)
+        parts = [self._dp(dev, args) for dev, args in shards]
+        ostk, par, pix = (a[:nrows] for a in join_rows(parts, split))
+        account_out((ostk, par, pix), self.stats, self.device)
         self.stats["bridge_device_time"] += time.perf_counter() - t0
         self.stats["bridge_dispatches"] += 1
         self.stats["bridge_instances"] += nrows
         return ostk, par, pix
+
+    def _dp(self, dev, args):
+        """The DP on `dev` over staged rows (replayed as a CUDA graph
+        recorded there, one a row count); C-contiguous host outputs."""
+        if self._replays is None:
+            out = bridge_dp(*(a.to(dev, non_blocking=True) for a in args))
+        else:
+            key = (dev, args[0].shape[0])
+            with torch.cuda.device(dev):
+                if key not in self._replays:
+                    bufs = tuple(a.to(dev) for a in args)
+                    self._replays[key] = (bufs, Replay(
+                        lambda: bridge_dp(*bufs), bufs))
+                bufs, graph = self._replays[key]
+                for buf, a in zip(bufs, args):
+                    buf.copy_(a, non_blocking=True)
+                out = graph.replay()
+        return tuple(t.contiguous().cpu().numpy() for t in out)
 
 
 def fuzz_batch(rng, n, V=DEFAULT_V, E=DEFAULT_E, T=DEFAULT_T, ties=False):

@@ -22,6 +22,7 @@ import torch
 from ..device import device as port_device
 from . import drain as drain_ops
 from .constants import DRAIN_B, DRAIN_P, DRAIN_V, NEG
+from .meshing import account_out, join_rows, shard_args
 
 
 def device_f64_exact(device=None):
@@ -96,11 +97,24 @@ class DeviceGreedyFused:
                     np.zeros((0, self.maxp), dtype=np.float64),
                     np.zeros(0, dtype=np.int32))
         t0 = time.perf_counter()
-        args = [t[:nrows].to(self.device, non_blocking=True)
-                for t in self._stage]
-        cuda = self.device.type == "cuda"
+        # several devices: the live rows split over them (ops/meshing.py)
+        shards, split = shard_args([t[:nrows] for t in self._stage],
+                                   self.stats, self.device)
+        parts = [self._drain(dev, args) for dev, args in shards]
+        paths, ws, npaths = join_rows(parts, split)
+        account_out((paths, ws, npaths), self.stats, self.device)
+        self.stats["fused_device_time"] += time.perf_counter() - t0
+        self.stats["fused_dispatches"] += 1
+        self.stats["fused_graphs"] += nrows
+        self.stats["fused_paths"] += int(npaths.sum())
+        return paths, ws, npaths
+
+    def _drain(self, dev, args):
+        """One drain launch on `dev` over staged rows; host outputs."""
+        args = [a.to(dev, non_blocking=True) for a in args]
+        cuda = dev.type == "cuda"
         if cuda:
-            stream = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.current_stream(dev)
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record(stream)
@@ -113,8 +127,4 @@ class DeviceGreedyFused:
         if cuda:
             ev1.synchronize()
             self.stats["fused_launch_ms"] += ev0.elapsed_time(ev1)
-        self.stats["fused_device_time"] += time.perf_counter() - t0
-        self.stats["fused_dispatches"] += 1
-        self.stats["fused_graphs"] += nrows
-        self.stats["fused_paths"] += int(npaths.sum())
         return paths, ws, npaths

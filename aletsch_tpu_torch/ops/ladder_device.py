@@ -21,6 +21,7 @@ import torch
 from ..device import device as port_device
 from . import ladder_kernel as lk
 from ._replay import bucket
+from .meshing import account_out, join_rows, shard_args
 
 
 class DeviceLadder:
@@ -63,6 +64,9 @@ class DeviceLadder:
         self._replay = lk.LadderReplay(
             V, E, H, L, dmax, dlog, self.device) \
             if self.device.type == "cuda" else None
+        # the replays by device: this solver's own, and one for each other
+        # card of a mesh (ops/meshing.py)
+        self._replays = {self.device: self._replay}
         # ladder_device_time: host clock of solve() (copies, the lockstep
         # loop with its one host read an iteration, copies back), s
         self.stats = {"ladder_dispatches": 0, "ladder_graphs": 0,
@@ -92,25 +96,39 @@ class DeviceLadder:
         graphs."""
         t0 = time.perf_counter()
         rows = nrows if self._replay is None else bucket(nrows, self.batch)
+        self.meta3[nrows:rows, 2] = 0          # stale rows inactive
+        # several devices: the graphs split over them (ops/meshing.py)
+        shards, split = shard_args([t[:rows] for t in self._stage],
+                                   self.stats, self.device)
+        parts = [self._ladder(dev, staged) for dev, staged in shards]
+        larm, ltgt, ndec, status = (a[:nrows]
+                                    for a in join_rows(parts, split))
+        account_out((larm, ltgt, ndec, status), self.stats, self.device)
+        self.stats["ladder_device_time"] += time.perf_counter() - t0
+        self.stats["ladder_dispatches"] += 1
+        self.stats["ladder_graphs"] += nrows
+        self.stats["ladder_decisions"] += int(ndec.sum())
+        return larm, ltgt, ndec, status
+
+    def _ladder(self, dev, staged):
+        """The ladder on `dev` over staged rows (each iteration replayed as
+        a CUDA graph recorded there); C-contiguous host outputs of the
+        first four."""
         (esrc, edst, ewrt, estr, esin, esout, ealive, meta3, nz, hedge,
-         hlen, scal) = (t[:rows].to(self.device, non_blocking=True)
-                        for t in self._stage)
-        nv = meta3[:, 2].contiguous()
-        nv[nrows:] = 0                          # stale rows inactive
+         hlen, scal) = (t.to(dev, non_blocking=True) for t in staged)
         args = (esrc, edst, ewrt, estr, esin, esout, ealive.to(torch.bool),
                 meta3[:, 0].contiguous(), meta3[:, 1].contiguous(),
-                nz.to(torch.bool), hedge, hlen, nv,
+                nz.to(torch.bool), hedge, hlen, meta3[:, 2].contiguous(),
                 scal[:, 0].contiguous(), scal[:, 1].contiguous(),
                 scal[:, 2].contiguous(), scal[:, 3].contiguous())
         if self._replay is None:
             out = lk.ladder(*args, DMAX=self.dmax, DLOG=self.dlog,
                             counters=self.stats)
         else:
-            out = self._replay(*args, counters=self.stats)
-        larm, ltgt, ndec, status = (t[:nrows].contiguous().cpu().numpy()
-                                    for t in out[:4])
-        self.stats["ladder_device_time"] += time.perf_counter() - t0
-        self.stats["ladder_dispatches"] += 1
-        self.stats["ladder_graphs"] += nrows
-        self.stats["ladder_decisions"] += int(ndec.sum())
-        return larm, ltgt, ndec, status
+            if dev not in self._replays:
+                self._replays[dev] = lk.LadderReplay(
+                    self.maxv, self.maxe, self.maxh, self.maxl, self.dmax,
+                    self.dlog, dev)
+            with torch.cuda.device(dev):
+                out = self._replays[dev](*args, counters=self.stats)
+        return tuple(t.contiguous().cpu().numpy() for t in out[:4])

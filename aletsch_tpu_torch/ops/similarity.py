@@ -50,15 +50,17 @@ def _intersection_matrix_host(inc):
     return inc @ inc.T
 
 
-def _counts(inc):
-    """inc @ inc.T in f32 with TF32 off (see the module docstring)."""
+def _counts(inc, against=None):
+    """inc @ against.T (against defaults to inc) in f32 with TF32 off (see
+    the module docstring)."""
     import torch
+    other = inc if against is None else against
     if inc.device.type != "cuda":
-        return torch.matmul(inc, inc.T)
+        return torch.matmul(inc, other.T)
     was = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return torch.matmul(inc, inc.T)
+        return torch.matmul(inc, other.T)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
 

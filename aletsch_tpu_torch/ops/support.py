@@ -23,6 +23,7 @@ import torch
 
 from ..device import device as port_device
 from .constants import SUPPORT_B, SUPPORT_J, SUPPORT_NS
+from .meshing import account_out, join_rows, shard_args
 
 DEFAULT_B = SUPPORT_B     # groups per dispatch
 DEFAULT_NS = SUPPORT_NS   # padded sample slots (larger maps stay on host)
@@ -64,8 +65,14 @@ class DeviceSupport:
         """[nrows, maxj] f32 per-junction sums of the first nrows staged
         groups, as a C-contiguous host array."""
         t0 = time.perf_counter()
-        jw = self._stage[:nrows].to(self.device, non_blocking=True)
-        out = support_sum(jw).contiguous().cpu().numpy()
+        # several devices: the groups split over them (ops/meshing.py)
+        shards, split = shard_args([self._stage[:nrows]], self.stats,
+                                   self.device)
+        out, = join_rows([
+            (support_sum(jw.to(dev, non_blocking=True))
+             .contiguous().cpu().numpy(),)
+            for dev, (jw,) in shards], split)
+        account_out((out,), self.stats, self.device)
         self.stats["support_device_time"] += time.perf_counter() - t0
         self.stats["support_dispatches"] += 1
         self.stats["support_groups"] += nrows

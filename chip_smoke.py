@@ -3,12 +3,13 @@
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
-    python3 chip_smoke.py [--kernels-only | --phases 3e,3f,3g]
+    python3 chip_smoke.py [--kernels-only | --phases 3e,3f,3g,3h]
 
 Phases, each of which exits non-zero on failure:
 1. environment: the card's name and power limit, the kernel build from
    aletsch_tpu_torch/csrc with nvcc (sm_90a) and what ptxas reports for
-   each kernel, the native host core;
+   each kernel, the native host core: the port's own build and, beside
+   it, native/libabam.so for the reference CLI;
 2. kernel vs plain: the drain kernel against its plain PyTorch version on
    the card and on the host CPU (IEEE f64), bit for bit in f64 (ws
    compared as int64 views) and against the plain version on the card in
@@ -88,23 +89,26 @@ Phases, each of which exits non-zero on failure:
    reference's, every stage engaged, ladder_agree == ladder_total and
    fused_agree == fused_total, and the drain kernel launched on this path
    too.  The ladder's host clock is projected from phase 2c first; where
-   the production cohort would take too long, the bridge and support
-   stages run on it and the ladder runs (with them) on the largest smaller
-   cohort that fits in trust mode and on 200 genes in verify mode, and the
-   script prints which and why;
+   the production cohort would take too long (the two ladder runs have
+   110 s), the bridge and support stages run on it and the ladder runs
+   (with them) on the largest smaller cohort that fits in trust mode and
+   on 200 genes in verify mode, and the script prints which and why;
 3d. the CLI's defaults, where every device stage is on 'auto': the
    production cohort through python -m aletsch_tpu_torch with no
-   --device_* flag, once as it is (the first 'auto' question measures the
-   calibration into a temporary directory of the run's own) and once with
-   ALETSCH_DEVICE=0; every output byte-identical to the reference's; both
-   walls, the calibration's time, and for each stage its fit, what 'auto'
-   answered and what it sent to the card.  Every answer must equal what
-   the stage's own fit says, and no stage may reach the card whose fit
-   loses.  Then --device_similarity on in this process on the 200-gene
-   cohort with every subset of two or more bundles sent to the card (the
-   production cohort's subsets stay below the 48 bundles from which the
-   device forms run): byte-identical, and the sparse form's counter must
-   have grown;
+   --device_* flag, once as it is (its waves hold fewer groups than
+   device_min_groups, so no stage may ask the policy: no calibration file
+   may appear in the run's own temporary directory, and nothing may reach
+   the card) and once with ALETSCH_DEVICE=0; then the 200-gene cohort at
+   the defaults with --device_min_groups 0, where the first 'auto'
+   question measures the calibration; every output byte-identical to the
+   reference's; the walls, the calibration's time, and for each stage its
+   fit, what 'auto' answered and what it sent to the card.  Every answer
+   must equal what the stage's own fit says, and no stage may reach the
+   card whose fit loses.  Then --device_similarity on in this process on
+   the 200-gene cohort with every subset of two or more bundles sent to
+   the card (the production cohort's subsets stay below the 48 bundles
+   from which the device forms run): byte-identical, and the sparse
+   form's counter must have grown;
 3e. scoring on the card: python -m aletsch_tpu_torch.scoring.score and
    python -m aletsch_tpu.scoring.score (jax unimportable, so its forest
    runs _predict_numpy) on the feature CSVs of phase 3's port run with
@@ -125,7 +129,19 @@ Phases, each of which exits non-zero on failure:
 3g. the device trace: the forced drain on the 200-gene cohort in this
    process with --jax_profile_dir: the bytes unchanged, one
    *.pt.trace.json, and among its CUDA kernel events the drain kernel's
-   (at most one a launch: the profiler may drop some).
+   (at most one a launch: the profiler may drop some);
+3h. the process group and the mesh: python -m aletsch_tpu_torch
+   --jax_dist_launch 2 on the 200-gene cohort with the drain forced (two
+   gloo ranks sharing the card; jax and aletsch_tpu unimportable, each
+   rank prints its launches at exit): every output byte-identical, and
+   each rank must have launched the drain; dryrun_multichip over this
+   machine's cards (the sharded step on real wave tensors against the
+   one-device step and the host oracle, then the pipeline with every
+   device stage on against the host path); the sharded step over 2, 4
+   and 8 shards all placed on cuda:0 -- an emulation of a mesh on one
+   card, so labelled -- against the one-device step and the host oracle
+   (exact on bottleneck, mx, sim, support; 1e-6 on ave, dev) with its host
+   clock; measure_scaling_shape([1]) as one JSON line with the card.
 
 The last lines are the card (nvidia-smi), one JSON line of the kernels
 and the JSON result line.  In the kernels line, "launches" counts each
@@ -145,7 +161,7 @@ topological order with the drain's tie rule.  With --kernels-only the
 script stops after phase 2e, prints no result line and exits 0: a short
 first check of a changed kernel, and a way to time two checkouts in turns
 on one card.  --phases runs phase 1 and then only the phases named (of
-3e, 3f and 3g) on the 200-gene cohort, with one reference and one forced
+3e, 3f, 3g and 3h) on the 200-gene cohort, with one reference and one forced
 port run to feed them, and prints no result line: a short check of those
 phases.  This script imports only the port; the JAX package runs
 as a subprocess.  jax and aletsch_tpu are made unimportable first: the port
@@ -186,7 +202,7 @@ LADDER_ARGS = ["--device_ladder", "on"]
 # cohort with the flags above; a count of the data, the same on any
 # device).  On a host that launches slowly, where every other phase runs
 # longer too, the budget sends the trust-mode run to the smaller cohort.
-LADDER_BUDGET_S = 165.0
+LADDER_BUDGET_S = 110.0
 LADDER_GENES = (2000, 1000, 500, 200)
 VERIFY_GENES = 200      # the ladder's verify-mode run, where it is cut
 LADDER_ITERATIONS_PER_GENE = 88.1
@@ -241,6 +257,14 @@ def environment():
     name = torch.cuda.get_device_name(0)
     log("card: %s | torch.cuda: %s | torch %s, CUDA %s"
         % (smi, name, torch.__version__, torch.version.cuda))
+    # the JAX package's CLI (the reference runs below) loads
+    # native/libabam.so and makes it on first use: make it here, beside
+    # the kernels and the port's own build of the same sources
+    t0 = time.perf_counter()
+    ref_make = subprocess.Popen(["make", "-s", "-C",
+                                 os.path.join(REPO, "native")],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
     path, secs = _build.build()
     log("kernel library %s (nvcc %.1f s)"
         % (os.path.relpath(path, REPO), secs))
@@ -254,9 +278,12 @@ def environment():
             entry = "%s<%s>" % m.groups()
         elif "spill" in line or "Used" in line:
             log("ptxas %s: %s" % (entry, line.split(":", 1)[-1].strip()))
-    t0 = time.perf_counter()
     device_wave.require_native()
-    log("native core ready (%.1f s)" % (time.perf_counter() - t0))
+    _, err = ref_make.communicate(timeout=600)
+    require(ref_make.returncode == 0, "make -C native failed: %s"
+            % err[-2000:])
+    log("native core ready: the port's build and native/libabam.so (%.1f s "
+        "with the kernels)" % (time.perf_counter() - t0))
     return smi, name
 
 
@@ -1168,7 +1195,7 @@ def _require_same(got, ref, what):
                 "reference's" % (name, what))
 
 
-def main_path(forms, genes=GENES, samples=SAMPLES):
+def main_path(forms, smi, genes=GENES, samples=SAMPLES):
     """Reference and port CLIs on the production cohort.  Returns a dict
     of walls, the profiled run's device stats, launch count and device
     rows, and the step path's and the new path's results."""
@@ -1228,6 +1255,7 @@ def main_path(forms, genes=GENES, samples=SAMPLES):
                                       samples, env)
         res["jobs"] = jobs_path(tmp, lst, ref, env, small, small_ref)
         res["trace"] = trace_path(tmp, small, small_ref)
+        res["mesh"] = mesh_path(tmp, small, small_ref, env, smi)
     res["walls"] = walls
     return res
 
@@ -1424,20 +1452,27 @@ def _sent(st, stage):
 
 def default_path(tmp, lst, ref, env, small, small_ref):
     """Phase 3d: the production cohort through the port's CLI at its
-    defaults ('auto' everywhere) and its ALETSCH_DEVICE=0 twin; then
-    --device_similarity on in this process on the small cohort with every
-    subset on the card."""
+    defaults ('auto' everywhere) and its ALETSCH_DEVICE=0 twin; the small
+    cohort at the defaults with --device_min_groups 0, where 'auto' asks
+    the policy; then --device_similarity on in this process on the small
+    cohort with every subset on the card."""
     from aletsch_tpu_torch.ops import crossover
     from aletsch_tpu_torch.ops import similarity as SM
     policy_tmp = os.path.join(tmp, "policy_tmp")
     os.makedirs(policy_tmp)
-    # a temporary directory of its own: the first run finds no calibration
-    # and measures one, the later runs read it
+    # a temporary directory of its own: no calibration is cached there
     cuda_env = dict(env, ALETSCH_TORCH_DEVICE="cuda", TMPDIR=policy_tmp)
+    cache = os.path.join(policy_tmp, os.path.basename(crossover.cache_path()))
     res = {}
     out = os.path.join(tmp, "default_auto")
     res["wall_auto"], st = _default_run(lst, out, cuda_env)
     _require_same(_outputs(out), ref, "the default ('auto') run")
+    # its waves hold fewer groups than device_min_groups: no stage asks
+    require(not os.path.exists(cache), "the default run measured a "
+            "calibration: %s" % os.path.basename(cache))
+    require(not st.get("auto", {}).get("calibrated", False)
+            and not any(_sent(st, s) for s in STAGE_COUNTS),
+            "the default run calibrated or reached the card: %s" % st)
     out = os.path.join(tmp, "default_off")
     res["wall_off"], st_off = _default_run(
         lst, out, dict(cuda_env, ALETSCH_DEVICE="0"))
@@ -1446,21 +1481,30 @@ def default_path(tmp, lst, ref, env, small, small_ref):
         _sent(st_off, s) for s in STAGE_COUNTS),
         "ALETSCH_DEVICE=0 still asked the policy or reached the card: %s"
         % st_off)
+    log("default run ('auto' everywhere) wall %.2f s, no calibration, "
+        "nothing asked of the policy (%s); with ALETSCH_DEVICE=0 %.2f s; both "
+        "byte-identical to the reference (%d files)"
+        % (res["wall_auto"], st.get("auto"), res["wall_off"], len(ref)))
 
-    cache = os.path.join(policy_tmp, os.path.basename(crossover.cache_path()))
-    require(os.path.isfile(cache), "the default run left no calibration at "
-            "%s" % os.path.basename(cache))
+    # --device_min_groups 0 on the small cohort: 'auto' asks at every wave,
+    # and the first question measures the calibration
+    out = os.path.join(tmp, "default_min_groups_0")
+    res["wall_asked"], st = _default_run(small, out, cuda_env,
+                                         ["--device_min_groups", "0"])
+    _require_same(_outputs(out), small_ref,
+                  "the default run with --device_min_groups 0")
+    require(os.path.isfile(cache), "the run that asks left no calibration "
+            "at %s" % os.path.basename(cache))
     with open(cache) as fh:
         cal = json.load(fh)
     auto = st.get("auto")
-    require(auto and auto["calibrated"], "the default run never asked the "
-            "policy: %s" % st)
+    require(auto and auto["calibrated"], "the run with --device_min_groups 0 "
+            "never asked the policy: %s" % st)
     res["calibration_s"] = cal["measured_in_s"]
     res["cal"], res["stats"] = cal, st
-    log("default run ('auto' everywhere) wall %.2f s, of which the one-off "
-        "calibration %.2f s; with ALETSCH_DEVICE=0 %.2f s; both "
-        "byte-identical to the reference (%d files)"
-        % (res["wall_auto"], cal["measured_in_s"], res["wall_off"], len(ref)))
+    log("%d-gene cohort at the defaults with --device_min_groups 0: wall "
+        "%.2f s, of which the one-off calibration %.2f s; byte-identical"
+        % (VERIFY_GENES, res["wall_asked"], cal["measured_in_s"]))
     engaged = {}
     for stage in crossover.STAGES:
         asked = auto["asked"].get(stage, {})
@@ -1537,8 +1581,10 @@ def _report():
     f = sys.modules.get("aletsch_tpu_torch.scoring.forest")
     if f is not None:
         counts.update(f.stats)
-    print("[chip_smoke child] %%s %%s" %% (" ".join(sys.argv[1:2]) or "-",
-                                         json.dumps(counts)),
+    args = sys.argv[1:]
+    role = "rank" + args[args.index("--jax_dist") + 1] \
+        if "--jax_dist" in args else " ".join(args[:1]) or "-"
+    print("[chip_smoke child] %%s %%s" %% (role, json.dumps(counts)),
           file=sys.stderr, flush=True)
 
 
@@ -1756,7 +1802,88 @@ def trace_path(tmp, small, small_ref):
     return res
 
 
-def new_phases(phases, genes=VERIFY_GENES, samples=SAMPLES):
+# ------------------------------------------------------------ phase 3h
+MESH_SHARDS = (2, 4, 8)
+
+
+def mesh_path(tmp, small, small_ref, env, smi):
+    """Phase 3h: --jax_dist_launch 2 with the drain forced on the small
+    cohort; dryrun_multichip over this machine's cards; the sharded step
+    over 2, 4 and 8 shards all placed on cuda:0 (an emulation of a mesh on
+    one card) against the one-device step and the host oracle; the weak
+    scaling shape at one device."""
+    import numpy as np
+    import torch
+
+    from aletsch_tpu_torch.graft_entry import dryrun_multichip
+    from aletsch_tpu_torch.parallel import mesh, scaling
+    from aletsch_tpu_torch.parallel.wave_extract import host_oracle
+    t0 = time.perf_counter()
+    res = {}
+    out = os.path.join(tmp, "jax_dist")
+    res["dist_wall"], reports = _child_run(
+        ["aletsch_tpu_torch", "-i", small, *_cli_args(out), *DEVICE_ARGS,
+         "--jax_dist_launch", "2"], _child_env(tmp, env))
+    _require_same(_outputs(out), small_ref, "the --jax_dist_launch 2 run")
+    ranks = sorted((role, c["drain"]) for role, c in reports
+                   if role.startswith("rank"))
+    require(len(ranks) == 2 and all(n > 0 for _, n in ranks),
+            "each --jax_dist rank must launch the drain kernel: %s" % reports)
+    res["rank_launches"] = dict(ranks)
+    log("--jax_dist_launch 2 (gloo, both ranks on this card), drain forced, "
+        "%d-gene cohort: wall %.2f s; every output byte-identical to the "
+        "reference CLI's, as every one-process port run on this cohort is "
+        "(%d files); drain launches per rank %s"
+        % (VERIFY_GENES, res["dist_wall"], len(small_ref),
+           res["rank_launches"]))
+
+    n_cards = torch.cuda.device_count()
+    _reset_launches()
+    t1 = time.perf_counter()
+    dryrun_multichip(n_cards)
+    res["dryrun_s"] = time.perf_counter() - t1
+    res["dryrun_launches"] = _launches()["drain"]
+    log("dryrun_multichip(%d): the sharded step on real wave tensors == the "
+        "one-device step == host_oracle, and the pipeline with every device "
+        "stage on byte-identical to the host path, in %.2f s (drain "
+        "launches %d)" % (n_cards, res["dryrun_s"], res["dryrun_launches"]))
+
+    dev = torch.device("cuda", 0)
+    tensors, _ = _capture_cohort(dev)
+    want = host_oracle(*tensors)
+    args = mesh.batch_from_numpy(*tensors, dev)
+    single = mesh.outputs_to_numpy(mesh.step(*args))
+    names = ("bottleneck", "ave", "dev", "mx", "sim", "support")
+    res["step_ms"] = {1: _host_ms(lambda: mesh.outputs_to_numpy(
+        mesh.step(*args)), 5)}
+    for n in MESH_SHARDS:
+        m = mesh.make_mesh(n, devices=[dev] * n)
+        fn = mesh.build_sharded_step(m)
+        got = mesh.outputs_to_numpy(fn(*args))
+        for name, g, w1, w in zip(names, got, single, want):
+            check = _close if name in ("ave", "dev") else _exact
+            check("%d shards: %s against the one-device step" % (n, name),
+                  g, w1)
+            check("%d shards: %s against the host oracle" % (n, name), g, w)
+        res["step_ms"][n] = _host_ms(
+            lambda: mesh.outputs_to_numpy(fn(*args)), 5)
+        log("sharded step, EMULATION: %d shards (data %d x sample %d) all "
+            "on cuda:0, on the captured 41 / 42 wave: == the one-device "
+            "step == host_oracle (bottleneck, mx, sim, support exact; ave, "
+            "dev within 1e-6); host clock a call %.3f ms (one device %.3f)"
+            % (n, m.shape["data"], m.shape["sample"], res["step_ms"][n],
+               res["step_ms"][1]))
+    res["scaling"] = scaling.measure_scaling_shape([1])
+    print(json.dumps({"scaling_shape": res["scaling"], "card": smi}),
+          flush=True)
+    require(np.isfinite(res["scaling"]["rows"][0]["t_mesh_s"]),
+            "measure_scaling_shape gave no time")
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 3h took %.1f s" % res["seconds"])
+    return res
+
+
+def new_phases(phases, smi, genes=VERIFY_GENES, samples=SAMPLES):
     """--phases: one reference and one forced port run on the small
     cohort, then the phases named, on it."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -1778,9 +1905,11 @@ def new_phases(phases, genes=VERIFY_GENES, samples=SAMPLES):
             jobs_path(tmp, lst, ref, env, lst, ref)
         if "3g" in phases:
             trace_path(tmp, lst, ref)
+        if "3h" in phases:
+            mesh_path(tmp, lst, ref, env, smi)
 
 
-NEW_PHASES = ("3e", "3f", "3g")
+NEW_PHASES = ("3e", "3f", "3g", "3h")
 
 
 def main(argv=None):
@@ -1810,7 +1939,7 @@ def main(argv=None):
     try:
         smi, name = environment()
         if phases:
-            new_phases(phases)
+            new_phases(phases, smi)
             log("--phases %s: done in %.1f s; no result line"
                 % (",".join(phases), time.perf_counter() - t_start))
             return 0
@@ -1823,7 +1952,7 @@ def main(argv=None):
         if kernels_only:
             log("--kernels-only: stopping before the main path")
             return 0
-        res = main_path(forms)
+        res = main_path(forms, smi)
         st, launches, rows = res["stats"], res["launches"], res["rows"]
         log("device stats: %s" % json.dumps(st, sort_keys=True))
         require(st.get("fused_graphs", 0) > 0, "the drain never engaged")
@@ -1899,6 +2028,12 @@ def main(argv=None):
             "%d drain kernel events (%d bytes)"
             % (name, sc["csv_rows"], jobs["wall"], res["walls"]["port"][0],
                jobs["worker_launches"], tr["drain_events"], tr["bytes"]))
+        ms = res["mesh"]
+        log("phase 3h on %s: --jax_dist_launch 2 wall %.2f s, drain "
+            "launches per rank %s; dryrun_multichip %.2f s; the sharded "
+            "step's host clock (ms) by shards on one card %s"
+            % (name, ms["dist_wall"], ms["rank_launches"], ms["dryrun_s"],
+               {k: round(v, 3) for k, v in ms["step_ms"].items()}))
     except SmokeFailure as e:
         print("chip_smoke: FAIL: %s" % e, file=sys.stderr)
         return 1

@@ -4,8 +4,8 @@ greedy decomposition forced onto the device (the plain PyTorch versions on
 the CPU), fused and in step mode (ALETSCH_DEVICE_GREEDY=step), and with the
 bridge top-K DP, the support reduce and the resolution ladder forced on,
 each alone and all together: every output file byte-identical, the device
-engaged, trust and verify mode, the device gates, the refusals of what is
-not ported yet, and runs with jax and the JAX package both unimportable
+engaged, trust and verify mode, the device gates, and runs with jax and
+the JAX package both unimportable
 (also at the CLI's defaults and with --device_similarity on): the port
 owns every module it runs."""
 
@@ -22,8 +22,10 @@ from aletsch_tpu.config import default_params
 from aletsch_tpu.meta import device_wave as ref_wave
 from aletsch_tpu.ops import greedy_dp as ref_greedy_dp
 from aletsch_tpu_torch import __main__ as port_main
+from aletsch_tpu_torch.io import bam_native as port_bam_native
 from aletsch_tpu_torch.meta import device_wave as port_wave
 from aletsch_tpu_torch.meta import native_core
+from torch_helpers import load_reference_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORCED = ["--device_min_vertices", "2", "--device_min_groups", "0",
@@ -47,6 +49,13 @@ def _one_torch_thread():
 @pytest.fixture(autouse=True)
 def _cpu_device(monkeypatch):
     monkeypatch.setenv("ALETSCH_TORCH_DEVICE", "cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_native():
+    """Both packages see the native library: the gates and runs below
+    compare them on it."""
+    assert load_reference_native() == port_bam_native.native_available()
 
 
 @pytest.fixture(scope="module")
@@ -357,14 +366,6 @@ def test_missing_native_core_raises(greedy, monkeypatch):
         port_wave.enabled(cfg, 4)
 
 
-@pytest.mark.parametrize("args", [["--jax_dist_launch", "2"]])
-def test_unported_cli_modes_exit_nonzero(args, capsys):
-    rc = port_main.main(["-i", "x.list", "-o", "x.gtf", *args])
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "Queue 1 item 5" in err
-
-
 def test_help_matches_reference(capsys):
     for main in (ref_main.main, port_main.main):
         with pytest.raises(SystemExit) as e:
@@ -437,6 +438,9 @@ def test_sources_never_import_the_jax_package():
     sources = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
                if f.endswith(".py")]
     assert len(sources) >= 50
+    for rel in ("ops/meshing.py", "parallel/jaxdist.py",
+                "parallel/scaling.py", "graft_entry.py", "io/bam_native.py"):
+        assert os.path.join(pkg, rel) in sources, rel
     sources.append(os.path.join(REPO, "chip_smoke.py"))
     banned = re.compile(
         r"^\s*(from|import)\s+(jax|aletsch_tpu)(\.|\s|$)"

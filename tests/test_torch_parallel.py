@@ -3,8 +3,8 @@ and the incubator's profile workers) against the JAX package, on the CPU
 device: region shards merged, --jobs N and subprocess-profiled samples give
 the one-process bytes, with jax and the JAX package unimportable in every
 process the run spawns (tests/torch_helpers.py), and a worker that never
-engages the card imports no torch.  Also the refusal of --jax_dist*, and a
-scan that no port source spawns the JAX package by name."""
+engages the card imports no torch.  Also a scan that no port source
+spawns the JAX package by name (--jax_dist: tests/test_torch_jaxdist.py)."""
 
 import os
 import pickle
@@ -202,17 +202,17 @@ def test_shard_needs_a_dump_path(capsys):
     assert "--shard requires --shard_dump" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("args", [["--jax_dist", "0", "2", "localhost:1"],
-                                  ["--jax_dist_launch", "3"]])
-def test_jax_dist_is_refused(args, capsys):
-    assert port_main.main(["-i", "x.list", "-o", "x.gtf", *args]) == 2
-    assert "ROADMAP Queue 1 item 5" in capsys.readouterr().err
-
-
 # a module of the JAX package named in a string: what a subprocess would
 # run with -m, or an import by name
 SPAWN_BY_NAME = re.compile(
     r"""["']aletsch_tpu(?!_torch)(\.|["'])|-m\s+aletsch_tpu(?!_torch)""")
+
+
+# the modules that spawn the package's processes -> what the port's copy
+# spawns
+SPAWNERS = {"parallel/jobs.py": '"aletsch_tpu_torch.parallel.worker"',
+            "meta/incubator.py": '"aletsch_tpu_torch.parallel.worker"',
+            "parallel/jaxdist.py": '"-m", "aletsch_tpu_torch"]'}
 
 
 def test_sources_never_spawn_the_jax_package():
@@ -228,11 +228,12 @@ def test_sources_never_spawn_the_jax_package():
             for n, line in enumerate(fh, 1):
                 assert not SPAWN_BY_NAME.search(line), "%s:%d: %s" % (
                     path, n, line.strip())
-    for rel in ("parallel/jobs.py", "meta/incubator.py"):
+    assert {os.path.join(pkg, rel) for rel in SPAWNERS} <= set(sources)
+    for rel, spawned in SPAWNERS.items():
         with open(os.path.join(REPO, "aletsch_tpu", rel)) as fh:
             assert SPAWN_BY_NAME.search(fh.read()), rel
         with open(os.path.join(pkg, rel)) as fh:
-            assert '"aletsch_tpu_torch.parallel.worker"' in fh.read(), rel
+            assert spawned in fh.read(), rel
 
 
 @pytest.mark.parametrize("name", ["cpu", "cpu:0"])

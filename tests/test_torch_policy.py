@@ -13,6 +13,7 @@ tmp_path.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -358,6 +359,55 @@ def test_enabled_honours_device_min_groups(monkeypatch):
     assert device_wave.enabled(cfg, 128) is True
     cfg.device_greedy = "off"
     assert device_wave.enabled(cfg, 128) is False
+
+
+def _counting_measure(monkeypatch):
+    """Let the policy measure (a fake calibration) and count how often."""
+    calls = []
+    monkeypatch.setattr(crossover, "measure_policy",
+                        lambda: calls.append(1) or _fake_calibration())
+    return calls
+
+
+@pytest.mark.parametrize("n_groups", [3, 4])
+def test_auto_asks_nothing_below_device_min_groups(monkeypatch, n_groups):
+    """At the production cohort's wave sizes, below device_min_groups, a
+    default cfg's 'auto' stages answer no without asking the policy: no
+    calibration is measured or read, no cache is written, no answer is
+    recorded (a deliberate difference from the JAX package, whose bridge,
+    support and ladder gates ask at any size)."""
+    _as_cuda(monkeypatch)
+    calls = _counting_measure(monkeypatch)
+    cfg = default_params()[0]
+    assert cfg.device_min_groups == 16
+    assert device_wave.enabled(cfg, n_groups) is False
+    for stage in ("bridge", "support", "ladder"):
+        assert getattr(device_wave, stage + "_enabled")(cfg, n_groups) \
+            is False
+    assert calls == []
+    assert not os.path.exists(crossover.cache_path())
+    assert device_wave.policy == {} and device_wave._AUTO_CAL == ("unset",)
+    assert "auto" not in device_wave.device_stats()
+
+
+@pytest.mark.parametrize("n_groups", [16, 64])
+def test_auto_calibrates_once_from_device_min_groups(monkeypatch, n_groups):
+    """From device_min_groups up, the first question measures the
+    calibration once and caches it; every later one reads it."""
+    _as_cuda(monkeypatch)
+    calls = _counting_measure(monkeypatch)
+    cfg = default_params()[0]
+    for _ in range(2):
+        device_wave.enabled(cfg, n_groups)
+        for stage in ("bridge", "support", "ladder"):
+            getattr(device_wave, stage + "_enabled")(cfg, n_groups)
+    assert calls == [1]
+    with open(crossover.cache_path()) as fh:
+        assert json.load(fh) == _fake_calibration()
+    asked = device_wave.device_stats()["auto"]
+    assert asked["calibrated"] is True
+    assert set(asked["asked"]) >= {"bridge", "support", "ladder"}
+    assert all(set(v) == {n_groups} for v in asked["asked"].values())
 
 
 @pytest.mark.parametrize("env,want", [("0", False), ("1", True)])
