@@ -295,6 +295,7 @@ def device_stats():
     d = dict(stats)
     d["drain_launches"] = _launches("drain", "drain_cuda")
     d["bottleneck_launches"] = _launches("bottleneck", "bottleneck_cuda")
+    d["ladder_launches"] = _launches("ladder_kernel", "ladder_cuda")
     for s in (_DEVICE, _FUSED, _BRIDGE, _SUPPORT, _LADDER):
         if s is not None:
             d.update(s.stats)

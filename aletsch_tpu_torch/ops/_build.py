@@ -23,11 +23,22 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("drain.cu", "bottleneck.cu")
+SOURCES = ("drain.cu", "bottleneck.cu", "ladder.cu")
+# headers the sources include: in the hash, not compiled alone
+HEADERS = ("ladder_machine.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "aletsch_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# flags of one source beside NVCC_FLAGS: the ladder's f64 arithmetic must
+# not contract a product and a sum into a fused multiply-add
+SOURCE_FLAGS = {"ladder.cu": ("-fmad=false",)}
+
+# aletsch_ladder_f64's arguments but the stream: the 17 inputs, B and the
+# shape, maxiter, the 13 outputs and the event counts (ladder_host.cpp's
+# aletsch_ladder_host takes the same)
+LADDER_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 14)
 
 _LIB = None
 
@@ -43,9 +54,11 @@ def _nvcc():
 def library_path():
     """Path of the library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
+        flags = " ".join(SOURCE_FLAGS.get(name, ()))
         with open(os.path.join(CSRC, name), "rb") as fh:
-            h.update(name.encode() + b"\0" + fh.read())
+            h.update(name.encode() + b"\0" + flags.encode() + b"\0"
+                     + fh.read())
     return os.path.join(BUILD_DIR, "libaletsch_kernels_%s.so"
                         % h.hexdigest()[:16])
 
@@ -80,8 +93,8 @@ def build():
         jobs = []
         for name in SOURCES:
             obj = os.path.join(tmp, name + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                   os.path.join(CSRC, name)]
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-c",
+                   "-o", obj, os.path.join(CSRC, name)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
@@ -115,5 +128,7 @@ def load_library():
             fn = getattr(lib, name)
             fn.argtypes = [p, i, i, p, p]
             fn.restype = ctypes.c_int
+        lib.aletsch_ladder_f64.argtypes = LADDER_ARGTYPES + [p]
+        lib.aletsch_ladder_f64.restype = ctypes.c_int
         _LIB = lib
     return _LIB

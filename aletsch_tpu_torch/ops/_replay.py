@@ -1,12 +1,12 @@
 """CUDA-graph replay of plain PyTorch code.
 
-The bridge DP and an iteration of the ladder are thousands of small
-operations on small tensors; launched one by one the host cannot
-submit them as fast as the card runs them.  Recorded once as a CUDA graph and
-replayed, the same kernels run in the same order on the same buffers, so
-the results are the eager ones bit for bit, and the host pays for one
-launch.  The solvers replay on a CUDA device; on the CPU there is nothing
-to replay, and every operation runs as it comes.
+The bridge DP is thousands of small operations on small tensors;
+launched one by one the host cannot submit them as fast as the card runs
+them.  Recorded once as a CUDA graph and replayed, the same kernels run in
+the same order on the same buffers, so the results are the eager ones bit
+for bit, and the host pays for one launch.  The bridge solver replays on a
+CUDA device; on the CPU there is nothing to replay, and every operation
+runs as it comes.
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ import torch
 
 
 def bucket(n, cap):
-    """The smallest power of two >= n, at most cap: the batch sizes graphs
-    are recorded for."""
+    """The smallest power of two >= n, at most cap: the batch sizes the
+    solvers ship (and the bridge records its graphs for)."""
     b = 1
     while b < n:
         b *= 2

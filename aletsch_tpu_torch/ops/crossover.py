@@ -22,8 +22,8 @@ that model:
   the temporary directory under a name that carries the platform and the
   card, so production runs read the measured model instead of measuring
   again.  A shared fit would be wrong on a card: a drain dispatch costs
-  tenths of a millisecond, a bridge dispatch tens of them, a ladder
-  dispatch a hundred, so every stage is asked about its own measurement
+  tenths of a millisecond, a bridge dispatch tens of them, so every stage
+  is asked about its own measurement
   (meta/device_wave.py auto_device_ok).
 
 Timing: device_dispatch_s is the host clock of the solver's solve()
@@ -47,7 +47,9 @@ import torch
 from ..device import device as port_device
 
 DEFAULT_V = 64
-CACHE_FMT = "aletsch_torch_crossover_{platform}_{card}_v1.json"
+# v2: the ladder is one kernel launch (csrc/ladder.cu); a v1 file holds
+# the fit of the replayed lockstep loop it replaced
+CACHE_FMT = "aletsch_torch_crossover_{platform}_{card}_v2.json"
 STAGES = ("drain", "bridge", "support", "ladder", "similarity")
 SPIN_CYCLES = 10_000_000    # ~5 ms of GPU clock: longer than any enqueue
 
@@ -310,8 +312,8 @@ def measure_ladder(batches=(8, 64), reps=3, seed=5, V=None, E=None,
     resolution-arm prefix, ops/ladder_device.py over ops/ladder_kernel.py)
     vs the genuine native host ladder (core_bench_ladder) on identical
     graphs.  Same fit and break-even shape as measure().  The batch sizes
-    are powers of two, the sizes the solver records its CUDA graphs for;
-    the shape kwargs size the solver (default: the production shape)."""
+    are powers of two, the sizes the solver ships; the shape kwargs size
+    the solver (default: the production shape)."""
     from ..meta import native_core
     from . import ladder_kernel as lk
     from . import ladder_ref
@@ -363,7 +365,7 @@ def measure_ladder(batches=(8, 64), reps=3, seed=5, V=None, E=None,
         ld = DeviceLadder(batch=B, maxv=kV, maxe=kE, maxh=kH, maxl=kL,
                           dmax=kD, dlog=kG, device=dev)
         ld.stage_states(lk.pack_states(states, B, kV, kE, kH, kL), B)
-        _, _, ndec_dev, status = ld.solve(B)    # warm: records the graphs
+        _, _, ndec_dev, status = ld.solve(B)    # warm: builds the kernels
         it0 = ld.stats["ladder_iterations"]
         dev_times = []
         for _ in range(reps):

@@ -7,10 +7,12 @@ runs the whole resolution-arm prefix for every exported graph in a single
 dispatch of ops/ladder_kernel.py, and the native consume replays the
 decision logs with full metadata (native/core_scallop.h ladder_replay).
 Trust/verify mode follows the fused-drain probe (ops/greedy_fused.py
-device_f64_exact).  On a CUDA device the loop's body is replayed as a CUDA
-graph (ladder_kernel.LadderReplay), recorded for batch sizes that are
-powers of two: a dispatch ships its live rows and, behind them, staged
-rows up to the next such size, switched off (nv = 0)."""
+device_f64_exact).  On a CUDA device a dispatch is one launch of the
+hand-written kernel (csrc/ladder.cu, ladder_kernel.ladder_cuda) on each
+card of the mesh, which runs every graph's whole loop with no host read in
+between; it ships its live rows and, behind them, staged rows up to the
+next power of two (the batch sizes the solver has always shipped),
+switched off (nv = 0): such a row costs its block one read of nv."""
 
 from __future__ import annotations
 
@@ -61,14 +63,8 @@ class DeviceLadder:
         (self.esrc, self.edst, self.ewrt, self.estr, self.esin, self.esout,
          self.ealive, self.meta3, self.nz, self.hedge, self.hlen,
          self.scal) = (t.numpy() for t in self._stage)
-        self._replay = lk.LadderReplay(
-            V, E, H, L, dmax, dlog, self.device) \
-            if self.device.type == "cuda" else None
-        # the replays by device: this solver's own, and one for each other
-        # card of a mesh (ops/meshing.py)
-        self._replays = {self.device: self._replay}
-        # ladder_device_time: host clock of solve() (copies, the lockstep
-        # loop with its one host read an iteration, copies back), s
+        # ladder_device_time: host clock of solve() (copies, the kernel's
+        # launch or the plain lockstep loop, copies back), s
         self.stats = {"ladder_dispatches": 0, "ladder_graphs": 0,
                       "ladder_device_time": 0.0, "ladder_decisions": 0,
                       "ladder_iterations": 0}
@@ -95,7 +91,8 @@ class DeviceLadder:
         i32) as C-contiguous host arrays, for the first nrows staged
         graphs."""
         t0 = time.perf_counter()
-        rows = nrows if self._replay is None else bucket(nrows, self.batch)
+        rows = bucket(nrows, self.batch) if self.device.type == "cuda" \
+            else nrows
         self.meta3[nrows:rows, 2] = 0          # stale rows inactive
         # several devices: the graphs split over them (ops/meshing.py)
         shards, split = shard_args([t[:rows] for t in self._stage],
@@ -111,8 +108,8 @@ class DeviceLadder:
         return larm, ltgt, ndec, status
 
     def _ladder(self, dev, staged):
-        """The ladder on `dev` over staged rows (each iteration replayed as
-        a CUDA graph recorded there); C-contiguous host outputs of the
+        """The ladder on `dev` over staged rows: one kernel launch on a
+        card, the plain loop on the CPU; C-contiguous host outputs of the
         first four."""
         (esrc, edst, ewrt, estr, esin, esout, ealive, meta3, nz, hedge,
          hlen, scal) = (t.to(dev, non_blocking=True) for t in staged)
@@ -121,14 +118,6 @@ class DeviceLadder:
                 nz.to(torch.bool), hedge, hlen, meta3[:, 2].contiguous(),
                 scal[:, 0].contiguous(), scal[:, 1].contiguous(),
                 scal[:, 2].contiguous(), scal[:, 3].contiguous())
-        if self._replay is None:
-            out = lk.ladder(*args, DMAX=self.dmax, DLOG=self.dlog,
-                            counters=self.stats)
-        else:
-            if dev not in self._replays:
-                self._replays[dev] = lk.LadderReplay(
-                    self.maxv, self.maxe, self.maxh, self.maxl, self.dmax,
-                    self.dlog, dev)
-            with torch.cuda.device(dev):
-                out = self._replays[dev](*args, counters=self.stats)
+        out = lk.ladder(*args, DMAX=self.dmax, DLOG=self.dlog,
+                        counters=self.stats)
         return tuple(t.contiguous().cpu().numpy() for t in out[:4])

@@ -1,7 +1,8 @@
 """Batched device form of the scallop resolution-ladder prefix.
 
 Counterpart of aletsch_tpu/ops/ladder_kernel.py, section by section and
-name by name, as plain PyTorch on tensors.  The device form of
+name by name, as plain PyTorch on tensors, and the wrapper of its
+hand-written CUDA kernel.  The device form of
 ops/ladder_ref.py (which is itself the dense spec of scallop/scallop.cc:
 47-150 rungs 1-4: resolve_broken_vertex, resolve_trivial_vertex_fast,
 resolve_trivial_vertex(1, fast), resolve_smallest_edges).  A whole wave of
@@ -28,13 +29,14 @@ ladder, the trust-mode contract shared with the fused drain
 
 _build gives the three parts of the reference's function: init (the
 loop's initial state), body (one iteration) and finish (the results).
-ladder() drives them with each operation launched as it comes, which is
-what the CPU runs; LadderReplay drives the same body on a CUDA device as a
-replayed CUDA graph.  Either loop fetches `pc` to the host once an
-iteration: the loop condition and the two guards of the expensive tables
-(dominates, extends) are read from that one copy.  Every update is
-functional, as in the reference: a tensor that is read after its update
-is kept beside its new value.
+ladder_plain() drives them with each operation launched as it comes and
+fetches `pc` to the host once an iteration: the loop condition and the two
+guards of the expensive tables (dominates, extends) are read from that one
+copy.  Every update is functional, as in the reference: a tensor that is
+read after its update is kept beside its new value.  ladder_cuda()
+launches the hand-written kernel csrc/ladder.cu, which runs each graph's
+whole loop on the card in one launch with the same results; ladder()
+takes the kernel for CUDA tensors and the plain loop for CPU tensors.
 
 Status codes per graph: 0 = CLEAN (arms exhausted; the host resumes at
 the router rungs), 1 = OVERFLOW (edge-slot / pair / decision-log / list
@@ -50,7 +52,6 @@ import numpy as np
 import torch
 
 from . import ladder_ref
-from ._replay import Replay
 from .ladder_ref import BROKEN, SMALLEST, TRIVIAL  # noqa: F401 (re-export)
 
 DEFAULT_B = 64
@@ -90,6 +91,16 @@ STATE_NAMES = ("esrc", "edst", "ewrt", "estr", "esin", "esout", "ealive",
                "dp_e2", "dp_w", "dp_n", "dp_k", "dp_ms", "dside", "dret",
                "dretc", "larm", "ltgt", "ndec", "status")
 PC_SLOT = STATE_NAMES.index("pc")
+
+
+def ieee_sqrt(x):
+    """f64 sqrt, correctly rounded on any device.  torch's CPU kernel is
+    not: its vectorised f64 sqrt misses by an ulp on about 1 % of inputs
+    (sqrt(0.5) among them) on an AVX-512 host, so on the CPU numpy's
+    hardware sqrt takes its place.  CUDA's f64 sqrt is IEEE."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
 
 
 def _build(B, V, E, H, L, DMAX, DLOG, dev):
@@ -669,7 +680,7 @@ def _build(B, V, E, H, L, DMAX, DLOG, dev):
         loutr = t["lout"][bi, troot_c]
         bw1 = t["inw"][bi, troot_c]
         bw2 = t["outw"][bi, troot_c]
-        bww = torch.sqrt(bw1 * bw2)
+        bww = ieee_sqrt(bw1 * bw2)
         r1 = bww / where(bw1 == 0.0, 1.0, bw1)
         r2 = bww / where(bw2 == 0.0, 1.0, bw2)
 
@@ -857,8 +868,9 @@ def _build(B, V, E, H, L, DMAX, DLOG, dev):
 
 
 def _read_pc(pc):
-    """The one host read of an iteration: whether any graph still runs,
-    and the guards of the two expensive tables (dominates, extends)."""
+    """The one host read of an iteration of the plain loop: whether any
+    graph still runs, and the guards of the two expensive tables
+    (dominates, extends)."""
     pc_host = pc.cpu()
     return (bool((pc_host != PC_DONE).any()),
             bool((pc_host == PC_TV1).any()),
@@ -871,90 +883,140 @@ def _shape(args):
     return (B, args[9].shape[1], E) + tuple(args[10].shape[1:])
 
 
-def ladder(esrc, edst, ewrt, estr, esin, esout, ealive, nedges, nstamp, nz,
-           hedge, hlen, nv, jump, smallr, guard, smin, DMAX=DEFAULT_DMAX,
-           DLOG=DEFAULT_DLOG, maxiter=None, counters=None):
-    """Run the ladder prefix of every graph of the batch, each operation
-    launched as it comes.
+def _count(counters, events):
+    """Add a dispatch's lockstep iteration count, the largest per-graph
+    event count, to counters["ladder_iterations"]."""
+    if counters is not None:
+        it = int(events.max()) if events.numel() else 0
+        counters["ladder_iterations"] = \
+            counters.get("ladder_iterations", 0) + it
+
+
+def ladder_plain(esrc, edst, ewrt, estr, esin, esout, ealive, nedges, nstamp,
+                 nz, hedge, hlen, nv, jump, smallr, guard, smin,
+                 DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG, maxiter=None,
+                 counters=None, with_events=False):
+    """The ladder prefix of every graph of the batch in plain PyTorch, on
+    any device, each operation launched as it comes: every graph advances
+    one event a step, in lockstep, and the host reads pc once a step.
 
     esrc, edst, estr, esin, esout [B, E] i32, ewrt [B, E] f64, ealive
     [B, E] bool, nedges, nstamp, nv [B] i32, nz [B, V] bool, hedge
     [B, H, L] i32, hlen [B, H] i32, jump, smallr, guard, smin [B] f64, all
     on one device.  Returns (larm, ltgt [B, DLOG] i32, ndec, status [B]
-    i32, ewrt, ealive, esrc, edst, estr, nedges, hedge, hlen, nz).  When
-    `counters` is a dict, the loop's iteration count is added to
+    i32, ewrt, ealive, esrc, edst, estr, nedges, hedge, hlen, nz), and with
+    with_events also each graph's event count [B] i32: the steps in which
+    it ran, what csrc/ladder.cu counts.  The loop runs as many steps as the
+    largest count; with `counters` a dict, that number is added to
     counters["ladder_iterations"]."""
     args = (esrc, edst, ewrt, estr, esin, esout, ealive, nedges, nstamp, nz,
             hedge, hlen, nv, jump, smallr, guard, smin)
     B, V, E, H, L = _shape(args)
     init, body, finish = _build(B, V, E, H, L, DMAX, DLOG, esrc.device)
     state, params = init(*args)
+    events = torch.zeros(B, dtype=torch.int32, device=esrc.device)
     it = 0
     maxiter = 4 * V * V if maxiter is None else maxiter
     while it < maxiter:
         running, any_tv1, any_small = _read_pc(state[PC_SLOT])
         if not running:
             break
+        events += (state[PC_SLOT] != PC_DONE).to(torch.int32)
         state = body(state, params, any_tv1, any_small)
         it += 1
-    if counters is not None:
-        counters["ladder_iterations"] = \
-            counters.get("ladder_iterations", 0) + it
-    return finish(state)
+    _count(counters, events)
+    out = finish(state)
+    return out + (events,) if with_events else out
 
 
-class LadderReplay:
-    """ladder() on a CUDA device with each iteration's body replayed as a
-    CUDA graph: the same operations in the same order, recorded once for
-    each (batch size, any_tv1, any_small) and launched as one graph
-    instead of some eleven hundred kernels, whose launches the host cannot
-    submit as fast as the card runs them.  The state lives in buffers that
-    the recorded body reads and, as its last operations, overwrites; the
-    loop on the host stays as it is, one read of pc an iteration."""
+# the kernel's inputs: (name, dtype, shape in (B, V, E, H, L) letters)
+_IN_SPEC = tuple(zip(ARG_NAMES, (
+    (torch.int32, "BE"), (torch.int32, "BE"), (torch.float64, "BE"),
+    (torch.int32, "BE"), (torch.int32, "BE"), (torch.int32, "BE"),
+    (torch.bool, "BE"), (torch.int32, "B"), (torch.int32, "B"),
+    (torch.bool, "BV"), (torch.int32, "BHL"), (torch.int32, "BH"),
+    (torch.int32, "B"), (torch.float64, "B"), (torch.float64, "B"),
+    (torch.float64, "B"), (torch.float64, "B"))))
+# its outputs, in ladder()'s order, then the per-graph event counts
+OUT_NAMES = ("larm", "ltgt", "ndec", "status", "ewrt", "ealive", "esrc",
+             "edst", "estr", "nedges", "hedge", "hlen", "nz")
+_OUT_SPEC = (
+    (torch.int32, "BD"), (torch.int32, "BD"), (torch.int32, "B"),
+    (torch.int32, "B"), (torch.float64, "BE"), (torch.bool, "BE"),
+    (torch.int32, "BE"), (torch.int32, "BE"), (torch.int32, "BE"),
+    (torch.int32, "B"), (torch.int32, "BHL"), (torch.int32, "BH"),
+    (torch.bool, "BV"), (torch.int32, "B"))
 
-    def __init__(self, V=DEFAULT_V, E=DEFAULT_E, H=DEFAULT_H, L=DEFAULT_L,
-                 DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG, device="cuda"):
-        self.shape = (V, E, H, L)
-        self.dmax, self.dlog = DMAX, DLOG
-        self.device = torch.device(device)
-        self._batches = {}     # B -> (init, body, finish, buffers, graphs)
 
-    def __call__(self, *args, maxiter=None, counters=None):
-        B = args[0].shape[0]
-        assert _shape(args)[1:] == self.shape
-        V = self.shape[0]
-        if B not in self._batches:
-            init, body, finish = _build(B, *self.shape, self.dmax, self.dlog,
-                                        self.device)
-            state, params = init(*args)
-            buffers = tuple(t.clone() for t in state + params)
-            self._batches[B] = (init, body, finish, buffers, {})
-        init, body, finish, buffers, graphs = self._batches[B]
-        state, params = init(*args)
-        for buf, t in zip(buffers, state + params):
-            buf.copy_(t)
-        n = len(STATE_NAMES)
+def kernel_args(args, DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG, maxiter=None):
+    """Check ladder()'s 17 inputs for the kernel and allocate its outputs.
+    Returns (the outputs: the 13 of ladder() and the event counts, the C
+    function's arguments but the stream: pointers and the shape).  Raises
+    on a wrong type, shape, device or layout."""
+    if len(args) != len(ARG_NAMES):
+        raise TypeError("the ladder takes %d inputs, got %d"
+                        % (len(ARG_NAMES), len(args)))
+    B, V, E, H, L = _shape(args)
+    dims = dict(B=B, V=V, E=E, H=H, L=L, D=DLOG)
+    dev = args[0].device
+    for (name, (dtype, letters)), t in zip(_IN_SPEC, args):
+        shape = tuple(dims[c] for c in letters)
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError("%s must be %s %s, got %s %s" % (
+                name, dtype, shape, t.dtype, tuple(t.shape)))
+        if t.device != dev:
+            raise ValueError("%s is on %s, esrc on %s" % (name, t.device,
+                                                          dev))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    if not 1 <= DMAX <= 256 or DLOG < 1:
+        raise ValueError("DMAX must be in [1, 256] and DLOG >= 1, got %d, "
+                         "%d" % (DMAX, DLOG))
+    maxiter = 4 * V * V if maxiter is None else int(maxiter)
+    outs = tuple(torch.empty(tuple(dims[c] for c in letters), dtype=dtype,
+                             device=dev) for dtype, letters in _OUT_SPEC)
+    c_args = ([t.data_ptr() for t in args] + [B, V, E, H, L, DMAX, DLOG,
+                                               maxiter]
+              + [t.data_ptr() for t in outs])
+    return outs, c_args
 
-        def step(any_tv1, any_small):
-            new = body(buffers[:n], buffers[n:], any_tv1, any_small)
-            for buf, t in zip(buffers, new):
-                buf.copy_(t)
 
-        it = 0
-        maxiter = 4 * V * V if maxiter is None else maxiter
-        while it < maxiter:
-            running, any_tv1, any_small = _read_pc(buffers[PC_SLOT])
-            if not running:
-                break
-            key = (any_tv1, any_small)
-            if key not in graphs:
-                graphs[key] = Replay(lambda: step(*key), buffers)
-            graphs[key].replay()
-            it += 1
-        if counters is not None:
-            counters["ladder_iterations"] = \
-                counters.get("ladder_iterations", 0) + it
-        return tuple(t.clone() for t in finish(buffers[:n]))
+def ladder_cuda(*args, DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG, maxiter=None,
+                counters=None, with_events=False):
+    """ladder_plain's function as one launch of the hand-written kernel
+    (csrc/ladder.cu) on the current stream of the inputs' card: every graph
+    runs to its end on the card, one block a graph, with no host read in
+    between.  CUDA tensors of ladder_plain's types only, contiguous.  With
+    `counters`, the largest event count is read back (one sync) and added
+    to counters["ladder_iterations"]."""
+    dev = args[0].device
+    if dev.type != "cuda":
+        raise ValueError("ladder_cuda takes CUDA tensors, got %s" % dev)
+    outs, c_args = kernel_args(args, DMAX, DLOG, maxiter)
+    if args[0].shape[0] > 0:
+        from ._build import load_library
+        lib = load_library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.aletsch_ladder_f64(*c_args, stream)
+        if err != 0:
+            raise RuntimeError("ladder kernel launch failed: cudaError %d"
+                               % err)
+        ladder_cuda.launches += 1
+    _count(counters, outs[-1])
+    return outs if with_events else outs[:-1]
+
+
+ladder_cuda.launches = 0    # kernel launches since the last reset
+
+
+def ladder(*args, **kw):
+    """The ladder on its inputs' device: plain PyTorch for CPU tensors,
+    the kernel for CUDA tensors (which raises rather than fall back).
+    Keywords as ladder_plain's."""
+    if args[0].device.type == "cpu":
+        return ladder_plain(*args, **kw)
+    return ladder_cuda(*args, **kw)
 
 
 def pack_states(states, B, V, E, H, L):
@@ -1102,3 +1164,49 @@ def fuzz_states(seeds, V=DEFAULT_V, E=DEFAULT_E, H=DEFAULT_H, L=DEFAULT_L):
             refs.append(pair[0])
             states.append(pair[1])
     return refs, states
+
+
+def fixture_state(directory, name, E=DEFAULT_E, H=DEFAULT_H, L=DEFAULT_L):
+    """The dense ladder state of the ladder fixture `name` in `directory`
+    (the repository's tests/fixtures/ladder: <name>.graph in the
+    reference's text format, <name>.phase its phasing paths), or None
+    when the export refuses it.  Here beside fuzz_states for the reason
+    drain.fuzz_batch gives."""
+    import os
+
+    from ..config import Parameters
+    from ..core.graph_io import read_graph_reference
+    from ..scallop.decompose import Scallop
+    from ..scallop.hyper_set import HyperSet
+    gr = read_graph_reference(os.path.join(directory, name + ".graph"))
+    gr.chrm, gr.gid, gr.strand = "1", name, "+"
+    _stamp(gr)
+    hs = HyperSet()
+    phase = os.path.join(directory, name + ".phase")
+    if os.path.exists(phase):
+        with open(phase) as fh:
+            for line in fh:
+                parts = [int(x) for x in line.split()]
+                hs.add_node_list(parts[1:], parts[0])
+    return ladder_ref.export_scallop(Scallop(gr, hs, Parameters()),
+                                     emax=E, hmax=H, lmax=L)
+
+
+def fixture_names(directory):
+    """The ladder fixtures' names (those of expected.json), sorted."""
+    import json
+    import os
+    with open(os.path.join(directory, "expected.json")) as fh:
+        return sorted(json.load(fh))
+
+
+def fixture_states(directory, V=DEFAULT_V, E=DEFAULT_E, H=DEFAULT_H,
+                   L=DEFAULT_L):
+    """fixture_state of every ladder fixture in `directory` whose graph
+    fits the shape, in name order."""
+    states = []
+    for name in fixture_names(directory):
+        st = fixture_state(directory, name, E, H, L)
+        if st is not None and st.nv <= V:
+            states.append(st)
+    return states

@@ -30,21 +30,27 @@ Phases, each of which exits non-zero on failure:
    ignore), and the edge cases; its own path, bottleneck_from_source(
    version=1 and 2), driven with every launch count reset; then its times
    and bound, measured as the drain's;
-2c. the three XLA programs of the reference that the port runs as plain
-   PyTorch, on the card against their oracles at the production shapes,
-   exactly: the bridge top-K DP (random DAG windows and a tie-heavy batch,
-   1 and 64 rows) against its numpy oracle and the same function on the
-   host CPU; the support reduce against its numpy oracle; the resolution
-   ladder on seeded states (ops/ladder_kernel.py::fuzz_states, at the CPU
-   tests' small shape and at the production shape) against the dense
-   reference machine (ops/ladder_ref.py) decision for decision and against
-   the same function on the host CPU in every output, ewrt on int64
-   views; then the bridge and ladder solvers, which replay recorded CUDA
-   graphs on the card, against the same results.  For each form: the host
-   clock of a dispatch, and over one dispatch under the profiler its
-   device time and number of device kernels, for the bridge and the
-   ladder both replayed and with every operation launched as it comes;
-   for the ladder also its iterations a dispatch;
+2c. the three XLA programs of the reference, on the card against their
+   oracles at the production shapes, exactly: the bridge top-K DP (plain
+   PyTorch; random DAG windows and a tie-heavy batch, 1 and 64 rows)
+   against its numpy oracle and the same function on the host CPU, then
+   its solver, which replays a recorded CUDA graph; the support reduce
+   (plain PyTorch) against its numpy oracle; the resolution ladder's
+   hand-written kernel (csrc/ladder.cu, ladder_cuda) against its plain
+   form (ladder_plain) on the card and on the host CPU, every output and
+   the per-graph event counts bit for bit (ewrt on int64 views), at 1, 3,
+   55 and 64 rows, on seeded states (ops/ladder_kernel.py::fuzz_states)
+   at the CPU tests' small shape and at the production shape and on the
+   first 64 ladder fixtures (tests/fixtures/ladder) at the production
+   shape, and its logs against the dense reference machine
+   (ops/ladder_ref.py) decision for decision; what ptxas reported for the
+   kernel; its device time (CUDA events and the profiler), the wrapper
+   call's time, the plain form's time on the card and its bound at each
+   row count; then the solver (DeviceLadder.solve: one launch a
+   dispatch) against the kernel.  For each solver: the host clock of a
+   dispatch, and over one dispatch under the profiler its device time and
+   number of device kernels and copies, for the bridge also with every
+   operation launched as it comes;
 2d. the device forms this port runs as plain PyTorch beside those, on the
    card against their oracles: region_stats against region_stats_host in
    f64 (mx exact, ave and dev within 1e-6) at 256 and 65,536 regions;
@@ -81,18 +87,17 @@ Phases, each of which exits non-zero on failure:
    byte-identical to the reference's, and the bottleneck kernel must have
    carried every dispatch;
 3c. the bridge, support and ladder stages on the card (--device_bridge on
-   --device_support on --device_ladder on beside the forced drain): in
-   this process with every count reset (trust mode), and once more in
-   verify mode (ALETSCH_FUSED_TRUST=0: the
-   host ladder and drain are authoritative and every device decision is
+   --device_support on --device_ladder on beside the forced drain) on the
+   production cohort: in this process with every count reset (trust
+   mode), and once more in verify mode (ALETSCH_FUSED_TRUST=0: the host
+   ladder and drain are authoritative and every device decision is
    compared with the host's).  Every output file byte-identical to the
    reference's, every stage engaged, ladder_agree == ladder_total and
-   fused_agree == fused_total, and the drain kernel launched on this path
-   too.  The ladder's host clock is projected from phase 2c first; where
-   the production cohort would take too long (the two ladder runs have
-   110 s), the bridge and support stages run on it and the ladder runs
-   (with them) on the largest smaller cohort that fits in trust mode and
-   on 200 genes in verify mode, and the script prints which and why;
+   fused_agree == fused_total, the drain kernel launched on this path
+   too, and the ladder kernel launched once a ladder dispatch.  The
+   ladder's solve() clock is projected from phase 2c's dispatch first;
+   then the 200-gene cohort of phases 3d to 3h is built and its reference
+   bytes made;
 3d. the CLI's defaults, where every device stage is on 'auto': the
    production cohort through python -m aletsch_tpu_torch with no
    --device_* flag, once as it is (its waves hold fewer groups than
@@ -146,18 +151,21 @@ Phases, each of which exits non-zero on failure:
 The last lines are the card (nvidia-smi), one JSON line of the kernels
 and the JSON result line.  In the kernels line, "launches" counts each
 kernel's launches on its own path (drain: phase 3; the bottleneck's NEG
-form: phase 3b; its positive form: bottleneck_from_source in phase 2b),
-"ms" is the kernel's device time at that path's shape (one live graph for
-the drain and the NEG form, as most dispatches carry one; 64 graphs for
-the positive form), "plain_ms" the plain version's call time on the card
-at that shape, and "bound_ms" the least time the card could take for that
-call: the larger of its bytes over 3.35 TB/s (each output written once
-and each input read once, of W and P only the entries that can count:
-u < v <= sink of an active graph for the drain, u < v for the bottleneck)
-and its min/max/compare/select operations over the card's rate for them,
-both counted from this run's sinks and path counts.
-"library_ms" is null: no single PyTorch call computes a max-min chain in
-topological order with the drain's tie rule.  With --kernels-only the
+form: phase 3b; its positive form: bottleneck_from_source in phase 2b;
+the ladder: phase 3c's trust-mode run), "ms" is the kernel's device time
+at that path's shape (one live graph for the drain and the NEG form, as
+most dispatches carry one; 64 graphs for the positive form; 3 for the
+ladder, whose dispatches carry 2.7 on average), "plain_ms" the plain
+version's call time on the card at that shape, and "bound_ms" the least
+time the card could take for that call: the larger of its bytes over
+3.35 TB/s (each output written once and each input read once, of W and P
+only the entries that can count: u < v <= sink of an active graph for
+the drain, u < v for the bottleneck) and its operations over the card's
+rate for them (min/max/compare/select; for the ladder the two f64 adds an
+edge slot of each event's ordered in- and out-sums), counted from this
+run's sinks, path counts and event counts.  "library_ms" is null: no
+single PyTorch call computes a max-min chain in topological order with
+the drain's tie rule, nor the ladder's event machine.  With --kernels-only the
 script stops after phase 2e, prints no result line and exits 0: a short
 first check of a changed kernel, and a way to time two checkouts in turns
 on one card.  --phases runs phase 1 and then only the phases named (of
@@ -196,16 +204,12 @@ DEVICE_ARGS = ["--device_greedy", "on", "--device_min_vertices", "2",
 DEFAULT_ARGS = ["--max_num_exons", "8", "--verbose", "1"]
 BRIDGE_SUPPORT_ARGS = ["--device_bridge", "on", "--device_support", "on"]
 LADDER_ARGS = ["--device_ladder", "on"]
-# Phase 3c: the seconds its two in-process ladder runs may take together,
-# the cohorts to choose from, and what the ladder needs of a cohort: its
-# lockstep iterations a gene (counted by DeviceLadder on the 200-gene
-# cohort with the flags above; a count of the data, the same on any
-# device).  On a host that launches slowly, where every other phase runs
-# longer too, the budget sends the trust-mode run to the smaller cohort.
-LADDER_BUDGET_S = 110.0
-LADDER_GENES = (2000, 1000, 500, 200)
-VERIFY_GENES = 200      # the ladder's verify-mode run, where it is cut
-LADDER_ITERATIONS_PER_GENE = 88.1
+# Phase 3c's projection of the ladder's solve() clock on a cohort: its
+# dispatches a gene (731 on the 200-gene cohort with the flags above, a
+# count of the data, the same on any device) times a dispatch's host clock
+# in phase 2c
+LADDER_DISPATCHES_PER_GENE = 731 / 200
+SMALL_GENES = 200       # the cohort of phases 3d to 3h
 SPIN_CYCLES = 10_000_000        # ~5 ms of GPU clock: longer than any enqueue
 REPS = 25
 # Published peaks of one H100 SXM at its full power limit.  The 67 TFLOP/s
@@ -232,16 +236,18 @@ def log(msg):
 
 def _reset_launches():
     """Set every kernel wrapper's launch count to 0."""
-    from aletsch_tpu_torch.ops import bottleneck, drain
+    from aletsch_tpu_torch.ops import bottleneck, drain, ladder_kernel
     drain.drain_cuda.launches = 0
     bottleneck.bottleneck_cuda.launches = 0
+    ladder_kernel.ladder_cuda.launches = 0
 
 
 def _launches():
     """{kernel: launches since the last reset}."""
-    from aletsch_tpu_torch.ops import bottleneck, drain
+    from aletsch_tpu_torch.ops import bottleneck, drain, ladder_kernel
     return {"drain": drain.drain_cuda.launches,
-            "bottleneck": bottleneck.bottleneck_cuda.launches}
+            "bottleneck": bottleneck.bottleneck_cuda.launches,
+            "ladder": ladder_kernel.ladder_cuda.launches}
 
 
 # ------------------------------------------------------------ phase 1
@@ -273,9 +279,9 @@ def environment():
         # "Compiling entry function '<mangled name>'", then its spills,
         # then its registers and shared memory
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
-                      r"I(\w+?)EE", line)
+                      r"(?:I(\w+?)EE)?", line)
         if m:
-            entry = "%s<%s>" % m.groups()
+            entry = m.group(1) + ("<%s>" % m.group(2) if m.group(2) else "")
         elif "spill" in line or "Used" in line:
             log("ptxas %s: %s" % (entry, line.split(":", 1)[-1].strip()))
     device_wave.require_native()
@@ -627,7 +633,7 @@ def bottleneck_vs_plain(dev):
            for v in (1, 2)]
     n = _launches()
     pos_launches = n["bottleneck"]
-    require(n == {"drain": 0, "bottleneck": 2},
+    require(n == {"drain": 0, "bottleneck": 2, "ladder": 0},
             "bottleneck_from_source launched %s" % n)
     for v, T in zip((1, 2), got):
         require(T.dtype == np.float32 and np.array_equal(_canon(T), want),
@@ -706,34 +712,75 @@ def _form_times(tag, solve, sizes, reps, extra=lambda n: ""):
     return out
 
 
-def _check_ladder(tag, seeds, shape, dev):
-    """The ladder on the card against the reference machine and the same
-    function on the host CPU, on every seeded state that fits the shape.
-    Returns (states compared, decisions compared, packed arrays, the
-    card's results)."""
+def _abs_diff(g, w):
+    """The largest absolute difference of two equal-shaped arrays: f64 as
+    f64 (0 where the bits agree, so equal infinities count 0), the rest
+    as integers."""
+    import numpy as np
+    if not g.size:
+        return 0.0
+    if g.dtype == np.float64:
+        with np.errstate(invalid="ignore", over="ignore"):
+            d = np.where(_bits(g) == _bits(w), 0.0, np.abs(g - w))
+    else:
+        d = np.abs(g.astype(np.int64) - w.astype(np.int64))
+    return float(d.max())
+
+
+def _ladder_same(tag, got, want):
+    """Every output of two ladder runs and their event counts, equal bit
+    for bit (ewrt on int64 views).  Returns the largest absolute
+    difference over them (_abs_diff)."""
+    import numpy as np
+
+    from aletsch_tpu_torch.ops import ladder_kernel as LK
+    err = 0.0
+    for name, g, w in zip(LK.OUT_NAMES + ("events",), got, want):
+        require(g.dtype == w.dtype and g.shape == w.shape,
+                "%s: %s differs in type or shape" % (tag, name))
+        err = max(err, _abs_diff(g, w))
+        require(np.array_equal(_bits(g) if g.dtype == np.float64 else g,
+                               _bits(w) if w.dtype == np.float64 else w),
+                "%s: %s differs (max |diff| %g)"
+                % (tag, name, _abs_diff(g, w)))
+    return err
+
+
+def _check_ladder(tag, states, refs, shape, dev, rows):
+    """The kernel on the card == the plain form on the card == the plain
+    form on the host CPU, in every output and the event counts, at each
+    row count (the first n states); the kernel's logs == the reference
+    machine's decisions.  `refs` may be `states` itself: the states are
+    packed before the reference machine consumes them.  Returns (states
+    compared with the reference machine, decisions compared, the packed
+    arrays, the largest absolute difference of kernel and plain form)."""
     import numpy as np
 
     from aletsch_tpu_torch.ops import ladder_kernel as LK
     from aletsch_tpu_torch.ops import ladder_ref
-    refs, states = LK.fuzz_states(seeds, shape["V"], shape["E"], shape["H"],
-                                  shape["L"])
     n = len(states)
     arr = LK.pack_states(states, n, shape["V"], shape["E"], shape["H"],
                          shape["L"])
-    kw = {"DMAX": shape["DMAX"], "DLOG": shape["DLOG"]}
-    card = [t.cpu().numpy() for t in
-            LK.ladder(*LK.batch_from_numpy(arr, dev), **kw)]
-    host = [t.numpy() for t in
-            LK.ladder(*LK.batch_from_numpy(arr, "cpu"), **kw)]
-    names = ("larm", "ltgt", "ndec", "status", "ewrt", "ealive", "esrc",
-             "edst", "estr", "nedges", "hedge", "hlen", "nz")
-    for name, c, h in zip(names, card, host):
-        require(c.dtype == h.dtype and c.shape == h.shape
-                and np.array_equal(_bits(c) if c.dtype == np.float64 else c,
-                                   _bits(h) if h.dtype == np.float64 else h),
-                "%s ladder: %s on the card differs from the host CPU's"
-                % (tag, name))
-    larm, ltgt, ndec, status = card[:4]
+    kw = {"DMAX": shape["DMAX"], "DLOG": shape["DLOG"], "with_events": True}
+    on_card = LK.batch_from_numpy(arr, dev)
+    host = LK.ladder_plain(*LK.batch_from_numpy(arr, "cpu"), **kw)
+    err = 0.0
+    for r in rows:
+        require(r <= n, "%s ladder: %d states, fewer than %d rows"
+                % (tag, n, r))
+        sub = [a[:r] for a in on_card]
+        kern = [t.cpu().numpy() for t in LK.ladder_cuda(*sub, **kw)]
+        plain = [t.cpu().numpy() for t in LK.ladder_plain(*sub, **kw)]
+        want = [t[:r].numpy() for t in host]
+        err = max(err, _ladder_same(
+            "%s ladder, %d rows: the kernel against the plain form on the "
+            "host CPU" % (tag, r), kern, want))
+        err = max(err, _ladder_same(
+            "%s ladder, %d rows: the kernel against the plain form on the "
+            "card" % (tag, r), kern, plain))
+        _ladder_same("%s ladder, %d rows: the plain form on the card against "
+                     "the host CPU's" % (tag, r), plain, want)
+    larm, ltgt, ndec, status = (t.numpy() for t in host[:4])
     decisions = compared = 0
     for b, ref in enumerate(refs):
         dec, st = ladder_ref.run_ladder(ref, max_decisions=shape["DLOG"])
@@ -750,18 +797,121 @@ def _check_ladder(tag, seeds, shape, dev):
                 "machine %s" % (tag, b, got[:6], dec[:6]))
         compared += 1
         decisions += len(dec)
-    return compared, decisions, arr, card
+    log("%s ladder: csrc/ladder.cu == the plain form on the card == the plain "
+        "form on the host CPU, every output and the event counts bit for "
+        "bit (max |diff| %g), at %s rows; logs == the reference machine's "
+        "on %d of %d states (%d decisions); events a graph %d to %d"
+        % (tag, err, " / ".join(str(r) for r in rows), compared, n,
+           decisions, int(host[-1].min()), int(host[-1].max())))
+    return compared, decisions, arr, err
+
+
+def _ladder_bound(args, outs):
+    """Roofline bound of one ladder call on these inputs: every input read
+    and every output written once, and as operations the ordered in- and
+    out-sums each event of each graph needs at the least (two f64 adds an
+    edge slot), counted from this run's event counts."""
+    E = args[0].shape[1]
+    ops = int(outs[-1].sum()) * 2 * E
+    return _bound(_nbytes(*args, *outs), ops, F64_OPS_PER_S)
+
+
+def _ptxas_lines(kernel):
+    """What ptxas reported for one kernel's entries."""
+    from aletsch_tpu_torch.ops import _build
+    out, on = [], False
+    for line in _build.ptxas_report().splitlines():
+        if "Compiling entry function" in line:
+            on = kernel in line
+        elif on and ("spill" in line or "Used" in line):
+            out.append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def ladder_vs_plain(dev):
+    """Phase 2c, the ladder: csrc/ladder.cu against its plain form on fuzz
+    states at the CPU tests' shape and at the production shape and on the
+    ladder fixtures, at 1, 3, 55 and 64 rows; then its times and bound at
+    the production shape, and the solver's dispatch.  Returns (the largest
+    absolute difference of kernel and plain form over every comparison,
+    {nrows: times} of the kernel, {nrows: times} of DeviceLadder.solve)."""
+    import numpy as np
+
+    from aletsch_tpu_torch.ops import ladder_kernel as LK
+    from aletsch_tpu_torch.ops.ladder_device import DeviceLadder
+    rows = (1, 3, 55, 64)
+    small = dict(V=24, E=96, H=16, L=16, DMAX=12, DLOG=64)
+    full = dict(V=LK.DEFAULT_V, E=LK.DEFAULT_E, H=LK.DEFAULT_H,
+                L=LK.DEFAULT_L, DMAX=LK.DEFAULT_DMAX, DLOG=LK.DEFAULT_DLOG)
+    shapes = {k: full[k] for k in "VEHL"}
+    seen, err = 0, 0.0
+    for tag, shape, seeds in (("small-shape", small, range(100)),
+                              ("production-shape", full, range(100))):
+        refs, states = LK.fuzz_states(seeds, shape["V"], shape["E"],
+                                      shape["H"], shape["L"])
+        n, _, arr, e = _check_ladder(tag, states, refs, shape, dev, rows)
+        seen, err = seen + n, max(err, e)
+        if shape is full:
+            fuzz = arr
+    fixtures = os.path.join(REPO, "tests", "fixtures", "ladder")
+    # the first 64 fixtures that fit: the host CPU's plain run costs the
+    # same a row as a fuzz state's
+    states = LK.fixture_states(fixtures, **shapes)[:64]
+    n, _, _, e = _check_ladder("fixture", states, states, full, dev, rows)
+    err = max(err, e)
+    require(seen >= 80 and n >= 64, "too few ladder states compared with "
+            "the reference machine (%d fuzz, %d fixtures)" % (seen, n))
+    log("ptxas ladder_kernel: %s" % "; ".join(_ptxas_lines("ladder_kernel")))
+
+    on_card = LK.batch_from_numpy(fuzz, dev)
+    times = {}
+    for n in rows:
+        a = [t[:n] for t in on_card]
+        outs = LK.ladder_cuda(*a, with_events=True)
+        t = {"device": _device_ms(lambda: LK.ladder_cuda(*a)),
+             "profiler": _profiled_ms(lambda: LK.ladder_cuda(*a),
+                                      "ladder_kernel"),
+             "call": _call_ms(lambda: LK.ladder_cuda(*a)),
+             "plain": _host_ms(lambda: [t.cpu() for t in LK.ladder_plain(
+                 *a)], 2),
+             "events": int(outs[-1].max()), "sum": int(outs[-1].sum())}
+        t["bound"], t["bound_by"], t["bytes"] = _ladder_bound(a, outs)
+        times[n] = t
+        log("ladder kernel nrows=%d (%d events in the longest graph, %d in "
+            "all): device %.4f ms (events, launch cost outside), profiler "
+            "%s ms; wrapper call %.4f ms; plain form's call %.2f ms (host "
+            "clock, median of 2); bound %.7f ms (%s; %d bytes), share of it "
+            "reached %.4f %%"
+            % (n, t["events"], t["sum"], t["device"],
+               "%.4f" % t["profiler"] if t["profiler"] else "not measured",
+               t["call"], t["plain"], t["bound"], t["bound_by"], t["bytes"],
+               100.0 * t["bound"] / t["device"]))
+    # the solver: the staged rows, one launch, the host rows back
+    ldev = DeviceLadder(device=dev)
+    ldev.stage_states(fuzz, 64)
+    want = [t.cpu().numpy() for t in LK.ladder_cuda(
+        *(t[:64] for t in on_card))]
+    for name, g, w in zip(LK.OUT_NAMES, ldev.solve(64), want):
+        require(g.dtype == w.dtype and g.flags["C_CONTIGUOUS"]
+                and np.array_equal(g, w), "ladder solve(64): %s "
+                "differs from the kernel's" % name)
+    n0 = LK.ladder_cuda.launches
+    ldev.solve(3)
+    require(LK.ladder_cuda.launches == n0 + 1, "a ladder dispatch launched "
+            "the kernel %d times" % (LK.ladder_cuda.launches - n0))
+    solve = _form_times("ladder solve(), one kernel launch,", ldev.solve,
+                        (1, 3, 55, 64), 5)
+    return err, times, solve
 
 
 def torch_forms_vs_oracles(dev):
-    """Phase 2c.  Returns {form: {nrows: times}}."""
+    """Phase 2c.  Returns {form: {nrows: times}}, and under "ladder_err"
+    the ladder kernel's largest absolute difference from its plain form."""
     import numpy as np
     import torch
 
     from aletsch_tpu_torch.ops import bridge_topk as BT
-    from aletsch_tpu_torch.ops import ladder_kernel as LK
     from aletsch_tpu_torch.ops import support as SP
-    from aletsch_tpu_torch.ops.ladder_device import DeviceLadder
     res = {}
 
     # bridge top-K
@@ -830,61 +980,8 @@ def torch_forms_vs_oracles(dev):
     res["support"] = _form_times("support solve()", sdev.solve, (1, 64), 25)
 
     # ladder
-    small = dict(V=24, E=96, H=16, L=16, DMAX=12, DLOG=64)
-    full = dict(V=LK.DEFAULT_V, E=LK.DEFAULT_E, H=LK.DEFAULT_H,
-                L=LK.DEFAULT_L, DMAX=LK.DEFAULT_DMAX, DLOG=LK.DEFAULT_DLOG)
-    n_small, d_small, _, _ = _check_ladder("small-shape", range(100), small,
-                                           dev)
-    n_full, d_full, arr, card = _check_ladder("production-shape", range(70),
-                                              full, dev)
-    require(n_small >= 40 and n_full >= 40, "too few ladder states compared "
-            "(%d and %d)" % (n_small, n_full))
-    log("ladder on the card == reference machine (logs, ndec, status) == the "
-        "host CPU's (every output, ewrt on int64 views): %d states, %d "
-        "decisions at V=24 E=96; %d states, %d decisions at the production "
-        "shape V=%d E=%d H=%d L=%d DMAX=%d DLOG=%d"
-        % (n_small, d_small, n_full, d_full, full["V"], full["E"], full["H"],
-           full["L"], full["DMAX"], full["DLOG"]))
-    ldev = DeviceLadder(device=dev)
-    n_states = min(len(arr["nv"]), ldev.batch)
-    ldev.stage_states(arr, n_states)
-    # the solver replays CUDA graphs: every state at once (a recorded batch
-    # of 64, the rows behind the live ones switched off) equals the card's
-    # run above
-    for name, g, w in zip(("larm", "ltgt", "ndec", "status"),
-                          ldev.solve(n_states), card):
-        require(g.dtype == np.int32 and g.flags["C_CONTIGUOUS"]
-                and np.array_equal(g, w[:n_states]), "ladder solve(%d): %s "
-                "differs from ladder()'s" % (n_states, name))
-    on_card = LK.batch_from_numpy(arr, dev)
-    counters = {}
-    iters = {}
-
-    def eager(n):
-        it0 = counters.get("ladder_iterations", 0)
-        out = LK.ladder(*(a[:n] for a in on_card), counters=counters)
-        [t.cpu() for t in out[:4]]
-        iters[n] = counters["ladder_iterations"] - it0
-
-    def replay(n):
-        it0 = ldev.stats["ladder_iterations"]
-        ldev.solve(n)
-        iters[n] = ldev.stats["ladder_iterations"] - it0
-
-    for key, mode, solve in (
-            ("ladder_eager", "ladder(), every operation launched as it comes,",
-             eager), ("ladder", "ladder solve(), replayed graphs,", replay)):
-        times = _form_times(mode, solve, (1, 3, n_states), 3,
-                            lambda n: "; %d iterations a dispatch" % iters[n])
-        for n, t in times.items():
-            t["iterations"] = iters[n]
-            log("%s nrows=%d: %.3f ms of host clock, %s of device time and "
-                "%.0f device kernels an iteration"
-                % (mode.split(",")[0], n, t["host_ms"] / iters[n],
-                   "%.3f ms" % (t["device_ms"] / iters[n])
-                   if t["device_ms"] is not None else "not measured",
-                   t["kernels"] / iters[n]))
-        res[key] = times
+    res["ladder_err"], res["ladder_kernel"], res["ladder"] = \
+        ladder_vs_plain(dev)
     return res
 
 
@@ -1132,11 +1229,12 @@ def policy_measurements(smi):
                 "measure_coverage R=%d: the card's stats differ from "
                 "numpy's" % r["n_regions"])
     n = _launches()
-    require(n["drain"] > 0 and n["bottleneck"] > 0, "the policy's "
-            "measurements launched %s: they must run the drain and the "
-            "bottleneck kernels" % n)
-    log("the policy's measurements launched the drain kernel %d times and "
-        "the bottleneck kernel %d times" % (n["drain"], n["bottleneck"]))
+    require(n["drain"] > 0 and n["bottleneck"] > 0 and n["ladder"] > 0,
+            "the policy's measurements launched %s: they must run the "
+            "drain, the bottleneck and the ladder kernels" % n)
+    log("the policy's measurements launched the drain kernel %d times, "
+        "the bottleneck kernel %d times and the ladder kernel %d times"
+        % (n["drain"], n["bottleneck"], n["ladder"]))
     f = out["measure"]["fit"]
     log("drain fit on this card: a %.4f ms, b %.3f us a graph, c %.3f us a "
         "graph, break_even_B %s; resident %.3f us a graph at B = 64"
@@ -1247,9 +1345,15 @@ def main_path(forms, smi, genes=GENES, samples=SAMPLES):
         print(prof.key_averages().table(sort_by="self_device_time_total",
                                         row_limit=12), flush=True)
         res["step"] = step_path(tmp, lst, ref)
-        res["new"] = new_path(tmp, lst, ref, env, forms, genes, samples)
-        small = res["new"].pop("small")
-        small_ref = res["new"].pop("small_ref")
+        res["new"] = new_path(tmp, lst, ref, forms, genes)
+        # the small cohort of phases 3d to 3h, and its reference bytes
+        small = _build_cohort(os.path.join(tmp, "cohort_small"), SMALL_GENES,
+                              samples, env)
+        out = os.path.join(tmp, "reference_small")
+        wall = _subprocess_wall("aletsch_tpu", small, out, HOST_ARGS, env)
+        small_ref = _outputs(out)
+        log("%d-gene cohort: reference subprocess wall %.2f s (%d files)"
+            % (SMALL_GENES, wall, len(small_ref)))
         res["default"] = default_path(tmp, lst, ref, env, small, small_ref)
         res["scoring"] = scoring_path(tmp, os.path.join(tmp, "port1", "gtf"),
                                       samples, env)
@@ -1345,6 +1449,11 @@ def _check_new_path(tag, st, n, stages, trust):
             require(st.get(k, 0) > 0, "%s: %s is %s: the %s stage never "
                     "engaged" % (tag, k, st.get(k), stage))
     if "ladder" in stages:
+        # one kernel launch a dispatch on one card: no replay of the plain
+        # body, no read of pc between events
+        require(n["ladder"] == st["ladder_dispatches"] > 0,
+                "%s: %d ladder kernel launches for %d dispatches"
+                % (tag, n["ladder"], st["ladder_dispatches"]))
         require(st["ladder_trust"] is trust, "%s: ladder_trust is %s"
                 % (tag, st["ladder_trust"]))
         require(st["ladder_agree"] == st["ladder_total"] > 0,
@@ -1352,70 +1461,26 @@ def _check_new_path(tag, st, n, stages, trust):
                 "(%d of %d)" % (tag, st["ladder_agree"], st["ladder_total"]))
 
 
-def new_path(tmp, lst, ref, env, forms, genes, samples):
+def new_path(tmp, lst, ref, forms, genes):
     """Phase 3c: the bridge, support and ladder stages through the port's
-    CLI on the card."""
-    ms_iter = forms["ladder"][3]["host_ms"] / forms["ladder"][3]["iterations"]
-    # what the two in-process ladder runs would take: trust mode on g
-    # genes, verify mode on VERIFY_GENES
-    projected = {g: LADDER_ITERATIONS_PER_GENE * (g + VERIFY_GENES) * ms_iter
-                 / 1e3 for g in LADDER_GENES if g <= genes}
-    fits = [g for g in sorted(projected, reverse=True)
-            if projected[g] <= LADDER_BUDGET_S]
-    ladder_genes = fits[0] if fits else min(projected)
-    log("ladder projection: %.3f ms of host clock an iteration (phase 2c, "
-        "three rows) x %.1f iterations a gene x (genes + %d for the verify "
-        "run) = %s s for %s genes; budget %.0f s: the ladder runs on %d "
-        "genes%s"
-        % (ms_iter, LADDER_ITERATIONS_PER_GENE, VERIFY_GENES,
-           " / ".join("%.0f" % projected[g] for g in sorted(projected)),
-           " / ".join(str(g) for g in sorted(projected)), LADDER_BUDGET_S,
-           ladder_genes, "" if fits else " (none fits; the smallest is run)"))
-    res = {"ladder_genes": ladder_genes, "ms_iter": ms_iter,
-           "projected": projected}
-    full = ladder_genes == genes
-    extra = BRIDGE_SUPPORT_ARGS + (LADDER_ARGS if full else [])
-    stages = ("bridge", "support") + (("ladder",) if full else ())
-
-    # the production cohort, in this process (a subprocess would run the
-    # same path a second time for a wall that includes the start-up)
-    out = os.path.join(tmp, "new_in_process")
-    wall, st, n = _in_process_run(lst, out, extra, True)
-    _require_same(_outputs(out), ref, "the new path's in-process run")
-    _check_new_path("new path, %d genes" % genes, st, n, stages, True)
-    res["runs"] = [("%d genes, %s, trust" % (genes, "+".join(stages)),
-                    wall, st, n)]
-
-    # the ladder, with the other stages: trust mode on the largest cohort
-    # that fits, verify mode on the small one
+    CLI on the card, on the production cohort, in trust and in verify
+    mode."""
+    ms = forms["ladder"][3]["host_ms"]
+    projected = LADDER_DISPATCHES_PER_GENE * genes * ms / 1e3
+    log("ladder projection: %.3f ms of host clock a 3-row dispatch (phase "
+        "2c) x %.3f dispatches a gene x %d genes = %.1f s of solve() a run"
+        % (ms, LADDER_DISPATCHES_PER_GENE, genes, projected))
+    res = {"projected": projected, "runs": []}
     extra = BRIDGE_SUPPORT_ARGS + LADDER_ARGS
     stages = ("bridge", "support", "ladder")
-    res["ladder_reference_walls"] = {}
-    cohorts = {genes: (lst, ref)}
-    for trust, g in ((True, ladder_genes), (False, VERIFY_GENES)):
+    for trust in (True, False):
         mode = "trust" if trust else "verify"
-        if g == genes and trust:
-            continue            # the run above had the ladder on
-        if g not in cohorts:
-            cohort = _build_cohort(os.path.join(tmp, "cohort_%d" % g), g,
-                                   samples, env)
-            out = os.path.join(tmp, "ladder_reference_%d" % g)
-            res["ladder_reference_walls"][g] = _subprocess_wall(
-                "aletsch_tpu", cohort, out, HOST_ARGS, env)
-            cohorts[g] = (cohort, _outputs(out))
-            log("%d-gene cohort: reference subprocess wall %.2f s (%d files)"
-                % (g, res["ladder_reference_walls"][g], len(cohorts[g][1])))
-        cohort, cohort_ref = cohorts[g]
-        out = os.path.join(tmp, "ladder_" + mode)
-        wall, st, n = _in_process_run(cohort, out, extra, trust)
-        _require_same(_outputs(out), cohort_ref,
-                      "the ladder's %s-mode run" % mode)
-        _check_new_path("%d-gene cohort, %s mode" % (g, mode), st, n, stages,
-                        trust)
-        res["runs"].append(("%d genes, %s, %s" % (g, "+".join(stages), mode),
-                            wall, st, n))
-    # the verify cohort is phase 3d's small cohort too
-    res["small"], res["small_ref"] = cohort, cohort_ref
+        out = os.path.join(tmp, "new_" + mode)
+        wall, st, n = _in_process_run(lst, out, extra, trust)
+        _require_same(_outputs(out), ref, "the new path's %s-mode run" % mode)
+        tag = "%d genes, %s, %s" % (genes, "+".join(stages), mode)
+        _check_new_path(tag, st, n, stages, trust)
+        res["runs"].append((tag, wall, st, n))
     return res
 
 
@@ -1504,7 +1569,7 @@ def default_path(tmp, lst, ref, env, small, small_ref):
     res["cal"], res["stats"] = cal, st
     log("%d-gene cohort at the defaults with --device_min_groups 0: wall "
         "%.2f s, of which the one-off calibration %.2f s; byte-identical"
-        % (VERIFY_GENES, res["wall_asked"], cal["measured_in_s"]))
+        % (SMALL_GENES, res["wall_asked"], cal["measured_in_s"]))
     engaged = {}
     for stage in crossover.STAGES:
         asked = auto["asked"].get(stage, {})
@@ -1557,7 +1622,7 @@ def default_path(tmp, lst, ref, env, small, small_ref):
     res["similarity_forced"] = (wall, {k: st_forced[k] for k in SM.stats})
     log("--device_similarity on with every subset of >= 2 bundles on the "
         "card, %d-gene cohort, in process: wall %.2f s, byte-identical; %s"
-        % (VERIFY_GENES, wall, res["similarity_forced"][1]))
+        % (SMALL_GENES, wall, res["similarity_forced"][1]))
     return res
 
 
@@ -1584,8 +1649,12 @@ def _report():
     args = sys.argv[1:]
     role = "rank" + args[args.index("--jax_dist") + 1] \
         if "--jax_dist" in args else " ".join(args[:1]) or "-"
-    print("[chip_smoke child] %%s %%s" %% (role, json.dumps(counts)),
-          file=sys.stderr, flush=True)
+    # one write(2) of the whole line: the workers of a run share the
+    # pipe and exit together, and a line written in parts interleaves
+    import os
+    sys.stderr.flush()
+    os.write(2, ("[chip_smoke child] %%s %%s\\n"
+                 %% (role, json.dumps(counts))).encode())
 
 
 import atexit
@@ -1756,7 +1825,7 @@ def jobs_path(tmp, lst, ref, env, small, small_ref):
     log("--shard 0 2 / --shard 1 2 (side by side) and --merge_shards, "
         "%d-gene cohort: %.2f s (the merge %.2f s); every output "
         "byte-identical (%d files); drain launches per shard %s"
-        % (VERIFY_GENES, res["shard_wall"], merge_wall, len(small_ref),
+        % (SMALL_GENES, res["shard_wall"], merge_wall, len(small_ref),
            shard_launches))
     log("phase 3f took %.1f s" % (time.perf_counter() - t0))
     return res
@@ -1795,7 +1864,7 @@ def trace_path(tmp, small, small_ref):
     log("--jax_profile_dir, %d-gene cohort, drain forced: byte-identical; "
         "%s: %d bytes, %d events, %d CUDA kernel events, %d of them the "
         "drain kernel's (%d launches, %.1f us)"
-        % (VERIFY_GENES, os.path.basename(files[0]), res["bytes"],
+        % (SMALL_GENES, os.path.basename(files[0]), res["bytes"],
            res["events"], res["kernels"], res["drain_events"], launches,
            res["drain_us"]))
     log("phase 3g took %.1f s" % (time.perf_counter() - t0))
@@ -1834,7 +1903,7 @@ def mesh_path(tmp, small, small_ref, env, smi):
         "%d-gene cohort: wall %.2f s; every output byte-identical to the "
         "reference CLI's, as every one-process port run on this cohort is "
         "(%d files); drain launches per rank %s"
-        % (VERIFY_GENES, res["dist_wall"], len(small_ref),
+        % (SMALL_GENES, res["dist_wall"], len(small_ref),
            res["rank_launches"]))
 
     n_cards = torch.cuda.device_count()
@@ -1883,7 +1952,7 @@ def mesh_path(tmp, small, small_ref, env, smi):
     return res
 
 
-def new_phases(phases, smi, genes=VERIFY_GENES, samples=SAMPLES):
+def new_phases(phases, smi, genes=SMALL_GENES, samples=SAMPLES):
     """--phases: one reference and one forced port run on the small
     cohort, then the phases named, on it."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -2000,9 +2069,10 @@ def main(argv=None):
                1.0 - busy_us / 1e6 / wall, sst["device_time"]))
         new = res["new"]
         for tag, wall, nst, n in new["runs"]:
-            log("new path run (%s) on %s: wall %.2f s; drain launches %d; "
-                "device stats: %s" % (tag, name, wall, n["drain"],
-                                      json.dumps(nst, sort_keys=True)))
+            log("new path run (%s) on %s: wall %.2f s; drain launches %d, "
+                "ladder kernel launches %d; device stats: %s"
+                % (tag, name, wall, n["drain"], n["ladder"],
+                   json.dumps(nst, sort_keys=True)))
             for form, unit in (("bridge", "instances"), ("support", "groups"),
                                ("ladder", "graphs")):
                 d = nst.get(form + "_dispatches", 0)
@@ -2013,11 +2083,10 @@ def main(argv=None):
                         "the wall)%s"
                         % (form, d, nst["%s_%s" % (form, unit)] / d, unit,
                            secs, secs / d * 1e3, 100.0 * secs / wall,
-                           "; %d iterations, %.1f a dispatch, %.3f ms each; "
-                           "%d decisions, agree %d of %d"
+                           "; %d events in the longest graphs, %.1f a "
+                           "dispatch; %d decisions, agree %d of %d"
                            % (nst["ladder_iterations"],
                               nst["ladder_iterations"] / d,
-                              secs / nst["ladder_iterations"] * 1e3,
                               nst["ladder_decisions"], nst["ladder_agree"],
                               nst["ladder_total"])
                            if form == "ladder" else ""))
@@ -2072,6 +2141,17 @@ def main(argv=None):
         "plain_ms": bn_times["pos", 64]["plain"],
         "bound_ms": bn_times["pos", 64]["bound"],
         "bound_by": bn_times["pos", 64]["bound_by"],
+        "library_ms": None}, {
+        "name": "ladder",
+        "route": "cuda",
+        "source": "aletsch_tpu_torch/csrc/ladder.cu",
+        "replaces": "aletsch_tpu/ops/ladder_kernel.py:772",
+        "launches": new["runs"][0][3]["ladder"],
+        "max_abs_err": forms["ladder_err"],
+        "ms": forms["ladder_kernel"][3]["device"],
+        "plain_ms": forms["ladder_kernel"][3]["plain"],
+        "bound_ms": forms["ladder_kernel"][3]["bound"],
+        "bound_by": forms["ladder_kernel"][3]["bound_by"],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

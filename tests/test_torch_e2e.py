@@ -14,6 +14,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -182,11 +183,23 @@ def test_port_verify_mode_parity(cohort, reference_off, tmp_path,
 @needs_native
 @pytest.mark.parametrize("stage", sorted(STAGES))
 def test_stage_alone_matches_reference(stage, cohort, reference_off,
-                                       support_cohort, tmp_path):
+                                       support_cohort, tmp_path,
+                                       monkeypatch):
     """One of --device_bridge / --device_support / --device_ladder forced
     on with the greedy stage left off: the wave engages all the same (and
     the drain with it), the bytes are the reference's host run's and its
-    own forced run's, and the stage consumed device results."""
+    own forced run's, and the stage consumed device results.  The
+    ladder's rows, as the native export staged them, hold no -0.0 (nor
+    negative) weight: the one input where the ladder kernel's final
+    weights may differ from the plain form's, in the sign of a zero."""
+    from aletsch_tpu_torch.ops.ladder_device import DeviceLadder
+    signed = []
+    solve = DeviceLadder.solve
+
+    def watch(self, nrows):
+        signed.append(int(np.signbit(self.ewrt[:nrows]).sum()))
+        return solve(self, nrows)
+    monkeypatch.setattr(DeviceLadder, "solve", watch)
     lst, want = cohort, reference_off
     if stage == "support":
         lst = support_cohort
@@ -205,6 +218,7 @@ def test_stage_alone_matches_reference(stage, cohort, reference_off,
         assert st["fused_graphs"] > st0.get("fused_graphs", 0)
     for other in set(STAGES) - {stage}:
         assert st[STAGES[other][1]] == st0[STAGES[other][1]]
+    assert bool(signed) == (stage == "ladder") and not any(signed)
 
 
 @needs_native

@@ -7,7 +7,6 @@ decision logs, statuses and integer fields with ==, f64 weights on int64
 views.  Ports of tests/test_ladder_kernel.py and
 tests/test_ladder_fixture_device.py."""
 
-import json
 import os
 import random
 
@@ -17,12 +16,10 @@ import torch
 
 from aletsch_tpu.ops import ladder_kernel as ref_kernel
 from aletsch_tpu_torch.config import Parameters
-from aletsch_tpu_torch.core.graph_io import (read_graph_reference,
-                                             simulate_graph)
+from aletsch_tpu_torch.core.graph_io import simulate_graph
 from aletsch_tpu_torch.ops import ladder_kernel, ladder_ref
 from aletsch_tpu_torch.ops.ladder_device import DeviceLadder
 from aletsch_tpu_torch.scallop.decompose import Scallop
-from aletsch_tpu_torch.scallop.hyper_set import HyperSet
 from test_graph_reference import _load_phases, _stamp
 from test_ladder_kernel import make_broken as ref_make_broken
 from test_ladder_kernel import make_states as ref_make_states
@@ -203,29 +200,27 @@ def test_iteration_cap_reads_out_as_overflow():
 
 # ------------------------------------------------------- ladder fixtures
 
-def _fixture_names():
-    with open(os.path.join(LADDER, "expected.json")) as fh:
-        return sorted(json.load(fh))
+def _port_fixture(name):
+    """The port's dense state of one ladder fixture (None where the export
+    refuses it), as chip_smoke.py builds it."""
+    return ladder_kernel.fixture_state(LADDER, name, E=FIX_KW["E"],
+                                       H=FIX_KW["H"], L=FIX_KW["L"])
 
 
-def _build_fixture(name, cls, reader=read_graph_reference, hs_cls=HyperSet,
-                   params=Parameters):
-    gr = reader(os.path.join(LADDER, name + ".graph"))
+def _build_host_fixture(name):
+    """The JAX package's Scallop of one ladder fixture, logging its arms,
+    built by the JAX package's tests' own helpers."""
+    from aletsch_tpu.config import Parameters as RefParameters
+    from aletsch_tpu.core.graph_io import read_graph_reference as ref_reader
+    from aletsch_tpu.scallop.hyper_set import HyperSet as RefHyperSet
+    gr = ref_reader(os.path.join(LADDER, name + ".graph"))
     gr.chrm = "1"
     gr.gid = name
     gr.strand = "+"
     _stamp(gr)
-    hs = hs_cls()
+    hs = RefHyperSet()
     _load_phases(name, hs)
-    return cls(gr, hs, params())
-
-
-def _build_host_fixture(name):
-    from aletsch_tpu.config import Parameters as RefParameters
-    from aletsch_tpu.core.graph_io import read_graph_reference as ref_reader
-    from aletsch_tpu.scallop.hyper_set import HyperSet as RefHyperSet
-    return _build_fixture(name, LoggingScallop, ref_reader, RefHyperSet,
-                          RefParameters)
+    return LoggingScallop(gr, hs, RefParameters())
 
 
 FIX_CHUNKS = 6
@@ -236,18 +231,18 @@ def test_fixture_prefixes_match(chunk):
     """The device-coverable prefix of each ladder fixture: the port's
     kernel == the port's reference machine == the host Scallop, decision
     for decision; on the first chunk also == the JAX kernel."""
-    names = _fixture_names()
+    names = ladder_kernel.fixture_names(LADDER)
     assert len(names) >= 100
     refs, hosts, kept = [], [], []
     for name in names[chunk::FIX_CHUNKS]:
-        st = _export(_build_fixture(name, Scallop), FIX_KW)
+        st = _port_fixture(name)
         if st is None or st.nv > FIX_KW["V"]:
             continue
         refs.append(st)
         hosts.append(_build_host_fixture(name))
         kept.append(name)
     assert len(kept) >= 100 // FIX_CHUNKS
-    states = [_export(_build_fixture(n, Scallop), FIX_KW) for n in kept]
+    states = [_port_fixture(n) for n in kept]
     logs, status, _ = ladder_kernel.run_kernel(states, **FIX_KW)
     for i, host in enumerate(hosts):
         run_restricted(host)
@@ -255,7 +250,7 @@ def test_fixture_prefixes_match(chunk):
         assert st == ladder_ref.ST_CLEAN and status[i] == 0, kept[i]
         assert logs[i] == dec == host.declog, (kept[i], logs[i], dec)
     if chunk == 0:
-        twins = [_export(_build_fixture(n, Scallop), FIX_KW) for n in kept]
+        twins = [_port_fixture(n) for n in kept]
         jlogs, jstatus, _ = ref_kernel.run_kernel(twins, **FIX_KW)
         assert jlogs == logs and np.array_equal(jstatus, status)
 
@@ -263,11 +258,8 @@ def test_fixture_prefixes_match(chunk):
 def test_fixtures_cover_the_arms():
     """Over all fixtures the broken, trivial and smallest arms all fire on
     the device (the counts tests/test_ladder_fixture_device.py pins)."""
-    states = []
-    for name in _fixture_names():
-        st = _export(_build_fixture(name, Scallop), FIX_KW)
-        if st is not None and st.nv <= FIX_KW["V"]:
-            states.append(st)
+    states = ladder_kernel.fixture_states(
+        LADDER, **{k: FIX_KW[k] for k in "VEHL"})
     assert len(states) >= 100, "fixture coverage collapsed"
     logs, status, _ = ladder_kernel.run_kernel(states, **FIX_KW)
     assert (status == 0).all()
@@ -336,32 +328,22 @@ def test_batch_from_numpy_types():
     assert kinds["esrc"] == kinds["hedge"] == kinds["nv"] == torch.int32
 
 
-def test_solver_replays_only_on_cuda():
-    dev = DeviceLadder(batch=2, maxv=KW["V"], maxe=KW["E"], maxh=KW["H"],
+def test_solver_on_the_cpu_runs_the_plain_loop(monkeypatch):
+    """On the CPU a dispatch is the plain lockstep loop over exactly the
+    live rows, never the kernel (whose route tests/test_torch_ladder_kernel.py
+    covers)."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU solver took the kernel's route")
+    monkeypatch.setattr(ladder_kernel, "ladder_cuda", refuse)
+    arr = ladder_kernel.pack_states(
+        ladder_kernel.fuzz_states(range(4), **SHAPE)[1][:3], 3, **SHAPE)
+    dev = DeviceLadder(batch=4, maxv=KW["V"], maxe=KW["E"], maxh=KW["H"],
                        maxl=KW["L"], dmax=KW["DMAX"], dlog=KW["DLOG"],
                        device="cpu")
-    assert dev._replay is None
-    assert ladder_kernel.STATE_NAMES[ladder_kernel.PC_SLOT] == "pc"
-    assert len(ladder_kernel.STATE_NAMES) == 33
-
-
-@pytest.mark.cuda
-def test_ladder_replay_matches_eager_on_card():
-    """LadderReplay (each iteration a replayed CUDA graph) against ladder()
-    on the card and on the host CPU: every output, ewrt on int64 views
-    (needs a GPU; python3 chip_smoke.py runs the full check)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    _, states = ladder_kernel.fuzz_states(range(25), **SHAPE)
-    arr = ladder_kernel.pack_states(states, len(states), **SHAPE)
-    kw = dict(DMAX=KW["DMAX"], DLOG=KW["DLOG"])
-    host = ladder_kernel.ladder(*ladder_kernel.batch_from_numpy(arr, "cpu"),
-                                **kw)
-    args = ladder_kernel.batch_from_numpy(arr, "cuda")
-    eager = ladder_kernel.ladder(*args, **kw)
-    replay = ladder_kernel.LadderReplay(device="cuda", **KW)
-    for _ in range(2):              # record, then replay
-        got = replay(*args)
-        for h, e, g in zip(host, eager, got):
-            assert np.array_equal(_bits(e.cpu().numpy()), _bits(h.numpy()))
-            assert np.array_equal(_bits(g.cpu().numpy()), _bits(h.numpy()))
+    dev.stage_states(arr, 3)
+    rows = []
+    plain = ladder_kernel.ladder_plain
+    monkeypatch.setattr(ladder_kernel, "ladder_plain", lambda *a, **k: (
+        rows.append(a[0].shape[0]), plain(*a, **k))[1])
+    _, _, ndec, status = dev.solve(3)
+    assert rows == [3] and ndec.shape == status.shape == (3,)
