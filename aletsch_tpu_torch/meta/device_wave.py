@@ -19,8 +19,9 @@ each kind across its groups into dispatches on the port's device:
 - kind 2, bridging pier DP: each group pauses once per bridging phase with
   every queued (source-run, strand) DP instance of every bundle exported
   together (core.cpp GroupRun::queue_bridge); the wave batches instances
-  across groups into [64, ...] dispatches (ops/bridge_topk.py) and feeds
-  results back in queue order for the native backtrace and vote.
+  across groups into [64, ...] dispatches (ops/bridge_topk.py: on a card
+  one launch of csrc/bridge.cu) and feeds results back in queue order for
+  the native backtrace and vote.
 - kind 3, cross-sample junction support: one [NS, J] row of weights per
   group, summed over the sample axis (ops/support.py).
 - kind 4, the scallop resolution ladder: each paused graph's dense
@@ -296,6 +297,7 @@ def device_stats():
     d["drain_launches"] = _launches("drain", "drain_cuda")
     d["bottleneck_launches"] = _launches("bottleneck", "bottleneck_cuda")
     d["ladder_launches"] = _launches("ladder_kernel", "ladder_cuda")
+    d["bridge_launches"] = _launches("bridge_topk", "bridge_cuda")
     for s in (_DEVICE, _FUSED, _BRIDGE, _SUPPORT, _LADDER):
         if s is not None:
             d.update(s.stats)

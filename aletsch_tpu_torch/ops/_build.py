@@ -23,9 +23,9 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("drain.cu", "bottleneck.cu", "ladder.cu")
+SOURCES = ("drain.cu", "bottleneck.cu", "ladder.cu", "bridge.cu")
 # headers the sources include: in the hash, not compiled alone
-HEADERS = ("ladder_machine.cuh",)
+HEADERS = ("ladder_machine.cuh", "bridge_machine.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "aletsch_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -39,6 +39,11 @@ SOURCE_FLAGS = {"ladder.cu": ("-fmad=false",)}
 # aletsch_ladder_host takes the same)
 LADDER_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p] * 14)
+# aletsch_bridge_topk's arguments but the stream: P, Wt, Lv, tgt, then n,
+# V, E, T, then ostk, par, pix (bridge_host.cpp's aletsch_bridge_host takes
+# the same)
+BRIDGE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p] * 3
 
 _LIB = None
 
@@ -130,5 +135,7 @@ def load_library():
             fn.restype = ctypes.c_int
         lib.aletsch_ladder_f64.argtypes = LADDER_ARGTYPES + [p]
         lib.aletsch_ladder_f64.restype = ctypes.c_int
+        lib.aletsch_bridge_topk.argtypes = BRIDGE_ARGTYPES + [p]
+        lib.aletsch_bridge_topk.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -38,10 +38,11 @@ plus the full parent/entry-index tables ([n, V, K]) for the host backtrace
 (bridge_solver.cc:548-568 walks them in microseconds; shipping the tables
 is cheaper than shipping every path).
 
-The k-loop is a Python loop of V - 1 steps of small tensor operations, the
-plain form.  On a CUDA device DeviceBridge records it once as a CUDA graph
-for each batch size (powers of two) and replays it: the same kernels in
-the same order, one launch for the host instead of some five thousand.
+bridge_dp runs the DP on its inputs' device: bridge_plain, a Python loop
+of V - 1 steps of small tensor operations, for CPU tensors; bridge_cuda,
+one launch of the hand-written kernel csrc/bridge.cu (one block an
+instance, its tables in shared memory), for CUDA tensors, which raises
+rather than fall back.
 """
 
 from __future__ import annotations
@@ -52,7 +53,6 @@ import numpy as np
 import torch
 
 from ..device import device as port_device
-from ._replay import Replay, bucket
 from .meshing import account_out, join_rows, shard_args
 from .constants import (BRIDGE_B, BRIDGE_BIG, BRIDGE_E, BRIDGE_K, BRIDGE_S,
                         BRIDGE_SENTINEL, BRIDGE_T, BRIDGE_V)
@@ -87,9 +87,10 @@ def _lex_order(keys):
     return perm
 
 
-def bridge_dp(P, Wt, Lv, tgt):
-    """P, Wt [n, V, E], Lv [n, V], tgt [n, T] i32 tensors on one device ->
-    (ostk [n, T, K, S], par [n, V, K], pix [n, V, K]) i32 tensors there."""
+def bridge_plain(P, Wt, Lv, tgt):
+    """The plain form: P, Wt [n, V, E], Lv [n, V], tgt [n, T] i32 tensors
+    on one device -> (ostk [n, T, K, S], par [n, V, K], pix [n, V, K]) i32
+    tensors there."""
     n, V, E = P.shape
     dev = P.device
     i32 = torch.int32
@@ -162,6 +163,73 @@ def bridge_dp(P, Wt, Lv, tgt):
     return ostk, par, pix
 
 
+# the kernel's inputs, all int32: (name, shape letters)
+_IN_SPEC = (("P", "nVE"), ("Wt", "nVE"), ("Lv", "nV"), ("tgt", "nT"))
+
+
+def kernel_args(P, Wt, Lv, tgt):
+    """Check bridge_plain's inputs for the kernel and allocate its outputs.
+    Returns (the outputs ostk, par, pix; the C function's arguments but the
+    stream: pointers and the shape).  Raises on a wrong type, shape, device
+    or layout."""
+    args = (P, Wt, Lv, tgt)
+    if P.dim() != 3 or tgt.dim() != 2:
+        raise ValueError("P must be [n, V, E] and tgt [n, T], got %s and %s"
+                         % (tuple(P.shape), tuple(tgt.shape)))
+    n, V, E = P.shape
+    dims = dict(n=n, V=V, E=E, T=tgt.shape[1])
+    for (name, letters), t in zip(_IN_SPEC, args):
+        shape = tuple(dims[c] for c in letters)
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError("%s must be torch.int32 %s, got %s %s" % (
+                name, shape, t.dtype, tuple(t.shape)))
+        if t.device != P.device:
+            raise ValueError("%s is on %s, P on %s" % (name, t.device,
+                                                       P.device))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    if V < 1 or E < 1:
+        raise ValueError("V and E must be >= 1, got %d, %d" % (V, E))
+    T = dims["T"]
+    outs = tuple(torch.empty(shape, dtype=torch.int32, device=P.device)
+                 for shape in ((n, T, K, S), (n, V, K), (n, V, K)))
+    c_args = ([t.data_ptr() for t in args] + [n, V, E, T]
+              + [t.data_ptr() for t in outs])
+    return outs, c_args
+
+
+def bridge_cuda(P, Wt, Lv, tgt):
+    """bridge_plain's function as one launch of the hand-written kernel
+    (csrc/bridge.cu) on the current stream of the inputs' card, one block
+    an instance.  CUDA tensors of bridge_plain's types only, contiguous."""
+    dev = P.device
+    if dev.type != "cuda":
+        raise ValueError("bridge_cuda takes CUDA tensors, got %s" % dev)
+    outs, c_args = kernel_args(P, Wt, Lv, tgt)
+    if P.shape[0] > 0:
+        from ._build import load_library
+        lib = load_library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.aletsch_bridge_topk(*c_args, stream)
+        if err != 0:
+            raise RuntimeError("bridge kernel launch failed: cudaError %d"
+                               % err)
+        bridge_cuda.launches += 1
+    return outs
+
+
+bridge_cuda.launches = 0    # kernel launches since the last reset
+
+
+def bridge_dp(P, Wt, Lv, tgt):
+    """The DP on its inputs' device: plain PyTorch for CPU tensors, the
+    kernel for any other (which raises rather than fall back)."""
+    if P.device.type == "cpu":
+        return bridge_plain(P, Wt, Lv, tgt)
+    return bridge_cuda(P, Wt, Lv, tgt)
+
+
 def batch_from_numpy(P, Wt, Lv, tgt, device):
     """The JAX solver's staging arrays (all i32) as the port's tensors on
     `device`."""
@@ -173,7 +241,9 @@ def batch_from_numpy(P, Wt, Lv, tgt, device):
 class DeviceBridge:
     """Pinned-shape batch solver for production wave bridging
     (meta/device_wave.py): one dispatch computes the top-K stack DP for up
-    to `batch` pier-DP instances paused across a region wave's groups."""
+    to `batch` pier-DP instances paused across a region wave's groups.  It
+    ships the live rows only, and runs bridge_dp once on each device of
+    the mesh: on a card one kernel launch."""
 
     def __init__(self, batch=DEFAULT_B, maxv=DEFAULT_V, maxe=DEFAULT_E,
                  maxt=DEFAULT_T, device=None):
@@ -190,10 +260,10 @@ class DeviceBridge:
             torch.zeros((batch, maxv), dtype=i32, pin_memory=pin),
             torch.full((batch, maxt), -1, dtype=i32, pin_memory=pin))
         self.P, self.Wt, self.Lv, self.tgt = (t.numpy() for t in self._stage)
-        self._replays = {} if self.device.type == "cuda" else None
-        # bridge_device_time: host clock of solve() (copies, DP, sync), s
+        # bridge_device_time: host clock of solve() (copies, DP, sync), s;
+        # bridge_launches: kernel launches of its dispatches
         self.stats = {"bridge_dispatches": 0, "bridge_instances": 0,
-                      "bridge_device_time": 0.0}
+                      "bridge_device_time": 0.0, "bridge_launches": 0}
 
     def row(self, i):
         """Writable (P, Wt, Lv, tgt) slices for the native export."""
@@ -203,36 +273,23 @@ class DeviceBridge:
         """(ostk [n,T,K,S], par [n,V,K], pix [n,V,K]) int32, C-contiguous
         host arrays, for the first nrows batch slots."""
         t0 = time.perf_counter()
-        # rows behind the live ones ride along in a replay: stale but
-        # well-formed
-        rows = nrows if self._replays is None else bucket(nrows, self.batch)
+        n0 = bridge_cuda.launches
         # several devices: the rows split over them (ops/meshing.py)
-        shards, split = shard_args([t[:rows] for t in self._stage],
+        shards, split = shard_args([t[:nrows] for t in self._stage],
                                    self.stats, self.device)
         parts = [self._dp(dev, args) for dev, args in shards]
-        ostk, par, pix = (a[:nrows] for a in join_rows(parts, split))
+        ostk, par, pix = join_rows(parts, split)
         account_out((ostk, par, pix), self.stats, self.device)
         self.stats["bridge_device_time"] += time.perf_counter() - t0
         self.stats["bridge_dispatches"] += 1
         self.stats["bridge_instances"] += nrows
+        self.stats["bridge_launches"] += bridge_cuda.launches - n0
         return ostk, par, pix
 
-    def _dp(self, dev, args):
-        """The DP on `dev` over staged rows (replayed as a CUDA graph
-        recorded there, one a row count); C-contiguous host outputs."""
-        if self._replays is None:
-            out = bridge_dp(*(a.to(dev, non_blocking=True) for a in args))
-        else:
-            key = (dev, args[0].shape[0])
-            with torch.cuda.device(dev):
-                if key not in self._replays:
-                    bufs = tuple(a.to(dev) for a in args)
-                    self._replays[key] = (bufs, Replay(
-                        lambda: bridge_dp(*bufs), bufs))
-                bufs, graph = self._replays[key]
-                for buf, a in zip(bufs, args):
-                    buf.copy_(a, non_blocking=True)
-                out = graph.replay()
+    @staticmethod
+    def _dp(dev, args):
+        """The DP on `dev` over staged rows; C-contiguous host outputs."""
+        out = bridge_dp(*(a.to(dev, non_blocking=True) for a in args))
         return tuple(t.contiguous().cpu().numpy() for t in out)
 
 
@@ -265,8 +322,8 @@ def fuzz_batch(rng, n, V=DEFAULT_V, E=DEFAULT_E, T=DEFAULT_T, ties=False):
 
 
 def bridge_dp_host(P, Wt, Lv, tgt):
-    """Numpy oracle with identical semantics (tests pin bridge_dp == this
-    == the solver.py DP)."""
+    """Numpy oracle with identical semantics (tests pin bridge_plain ==
+    the kernel == this == the solver.py DP)."""
     P = np.asarray(P)
     Wt = np.asarray(Wt)
     Lv = np.asarray(Lv)

@@ -47,9 +47,10 @@ import torch
 from ..device import device as port_device
 
 DEFAULT_V = 64
-# v2: the ladder is one kernel launch (csrc/ladder.cu); a v1 file holds
-# the fit of the replayed lockstep loop it replaced
-CACHE_FMT = "aletsch_torch_crossover_{platform}_{card}_v2.json"
+# v3: the bridge DP is one kernel launch (csrc/bridge.cu); a v2 file holds
+# the fit of the replayed CUDA graph it replaced (v1: the ladder's replayed
+# lockstep loop, before csrc/ladder.cu)
+CACHE_FMT = "aletsch_torch_crossover_{platform}_{card}_v3.json"
 STAGES = ("drain", "bridge", "support", "ladder", "similarity")
 SPIN_CYCLES = 10_000_000    # ~5 ms of GPU clock: longer than any enqueue
 

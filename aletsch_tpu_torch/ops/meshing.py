@@ -4,8 +4,7 @@ Counterpart of aletsch_tpu/ops/meshing.py.  When the process sees more
 than one device of a solver's type (several cards; the CPU device is one),
 every wave batch is split over them: each device owns B/n rows of the
 batch, and the solver runs its routine once a chunk on that chunk's device
-(a kernel launched there, the bridge's CUDA graph recorded there), then joins
-the host rows in order.  A batch whose rows do not divide by n is
+(a kernel launched there), then joins the host rows in order.  A batch whose rows do not divide by n is
 replicated: every device runs it whole, as a replicated SPMD program does,
 and the rows are read from the first.  With one device everything is the
 plain path: no copy, no stats.

@@ -31,10 +31,16 @@ Phases, each of which exits non-zero on failure:
    version=1 and 2), driven with every launch count reset; then its times
    and bound, measured as the drain's;
 2c. the three XLA programs of the reference, on the card against their
-   oracles at the production shapes, exactly: the bridge top-K DP (plain
-   PyTorch; random DAG windows and a tie-heavy batch, 1 and 64 rows)
-   against its numpy oracle and the same function on the host CPU, then
-   its solver, which replays a recorded CUDA graph; the support reduce
+   oracles at the production shapes, exactly: the bridge top-K DP's
+   hand-written kernel (csrc/bridge.cu, bridge_cuda) against its plain
+   form (bridge_plain) on the card and on the host CPU, and the host
+   CPU's against the numpy oracle, every output element for element at
+   1, 3, 37 and 64 rows, on random DAG windows and a tie-heavy batch at
+   the production shape and a tie-heavy batch at the CPU tests' shape;
+   what ptxas reported for it; its device time, the wrapper call's time,
+   the plain form's time on the card and its bound at each row count;
+   then its solver (DeviceBridge.solve: one launch a dispatch, the live
+   rows only) against the oracle; the support reduce
    (plain PyTorch) against its numpy oracle; the resolution ladder's
    hand-written kernel (csrc/ladder.cu, ladder_cuda) against its plain
    form (ladder_plain) on the card and on the host CPU, every output and
@@ -49,8 +55,7 @@ Phases, each of which exits non-zero on failure:
    row count; then the solver (DeviceLadder.solve: one launch a
    dispatch) against the kernel.  For each solver: the host clock of a
    dispatch, and over one dispatch under the profiler its device time and
-   number of device kernels and copies, for the bridge also with every
-   operation launched as it comes;
+   number of device kernels and copies;
 2d. the device forms this port runs as plain PyTorch beside those, on the
    card against their oracles: region_stats against region_stats_host in
    f64 (mx exact, ave and dev within 1e-6) at 256 and 65,536 regions;
@@ -70,8 +75,8 @@ Phases, each of which exits non-zero on failure:
    coverage's, and the roofline accounting, each printed as one JSON line
    with the card beside it.  The device results must agree with the
    host's; nothing is required of who wins.  The launch counts are reset
-   before and read after: the measurements must have launched both
-   kernels;
+   before and read after: the measurements must have launched the drain,
+   bottleneck, ladder and bridge kernels;
 3. main path: the production cohort (2000 genes x 10 paired-end samples,
    tools/refbuild/baseline.py) through python -m aletsch_tpu with the
    device off (the reference bytes) and through the port's CLI with the
@@ -94,7 +99,8 @@ Phases, each of which exits non-zero on failure:
    compared with the host's).  Every output file byte-identical to the
    reference's, every stage engaged, ladder_agree == ladder_total and
    fused_agree == fused_total, the drain kernel launched on this path
-   too, and the ladder kernel launched once a ladder dispatch.  The
+   too, and the ladder and bridge kernels launched once a dispatch of
+   their solvers.  The
    ladder's solve() clock is projected from phase 2c's dispatch first;
    then the 200-gene cohort of phases 3d to 3h is built and its reference
    bytes made;
@@ -152,20 +158,25 @@ The last lines are the card (nvidia-smi), one JSON line of the kernels
 and the JSON result line.  In the kernels line, "launches" counts each
 kernel's launches on its own path (drain: phase 3; the bottleneck's NEG
 form: phase 3b; its positive form: bottleneck_from_source in phase 2b;
-the ladder: phase 3c's trust-mode run), "ms" is the kernel's device time
-at that path's shape (one live graph for the drain and the NEG form, as
-most dispatches carry one; 64 graphs for the positive form; 3 for the
-ladder, whose dispatches carry 2.7 on average), "plain_ms" the plain
+the ladder and the bridge: phase 3c's trust-mode run), "ms" is the
+kernel's device time at that path's shape (one live graph for the drain
+and the NEG form, as most dispatches carry one; 64 graphs for the
+positive form; 3 for the ladder, whose dispatches carry 2.7 on average;
+37 instances of the random batch for the bridge, whose dispatches carry
+36.5 on average), "plain_ms" the plain
 version's call time on the card at that shape, and "bound_ms" the least
 time the card could take for that call: the larger of its bytes over
 3.35 TB/s (each output written once and each input read once, of W and P
 only the entries that can count: u < v <= sink of an active graph for
 the drain, u < v for the bottleneck) and its operations over the card's
 rate for them (min/max/compare/select; for the ladder the two f64 adds an
-edge slot of each event's ordered in- and out-sums), counted from this
-run's sinks, path counts and event counts.  "library_ms" is null: no
-single PyTorch call computes a max-min chain in topological order with
-the drain's tie rule, nor the ladder's event machine.  With --kernels-only the
+edge slot of each event's ordered in- and out-sums; for the bridge each
+valid candidate's S insert compares and the m - 1 compares of selecting
+the best of m), counted from this run's sinks, path counts, event counts
+and entry counts.  "library_ms" is null: no single PyTorch call computes
+a max-min chain in topological order with the drain's tie rule, nor the
+ladder's event machine, nor a stable top-K over six keys in one step of
+a DP whose next step reads it.  With --kernels-only the
 script stops after phase 2e, prints no result line and exits 0: a short
 first check of a changed kernel, and a way to time two checkouts in turns
 on one card.  --phases runs phase 1 and then only the phases named (of
@@ -236,18 +247,22 @@ def log(msg):
 
 def _reset_launches():
     """Set every kernel wrapper's launch count to 0."""
-    from aletsch_tpu_torch.ops import bottleneck, drain, ladder_kernel
+    from aletsch_tpu_torch.ops import (bottleneck, bridge_topk, drain,
+                                       ladder_kernel)
     drain.drain_cuda.launches = 0
     bottleneck.bottleneck_cuda.launches = 0
     ladder_kernel.ladder_cuda.launches = 0
+    bridge_topk.bridge_cuda.launches = 0
 
 
 def _launches():
     """{kernel: launches since the last reset}."""
-    from aletsch_tpu_torch.ops import bottleneck, drain, ladder_kernel
+    from aletsch_tpu_torch.ops import (bottleneck, bridge_topk, drain,
+                                       ladder_kernel)
     return {"drain": drain.drain_cuda.launches,
             "bottleneck": bottleneck.bottleneck_cuda.launches,
-            "ladder": ladder_kernel.ladder_cuda.launches}
+            "ladder": ladder_kernel.ladder_cuda.launches,
+            "bridge": bridge_topk.bridge_cuda.launches}
 
 
 # ------------------------------------------------------------ phase 1
@@ -633,7 +648,7 @@ def bottleneck_vs_plain(dev):
            for v in (1, 2)]
     n = _launches()
     pos_launches = n["bottleneck"]
-    require(n == {"drain": 0, "bottleneck": 2, "ladder": 0},
+    require(n == {"drain": 0, "bottleneck": 2, "ladder": 0, "bridge": 0},
             "bottleneck_from_source launched %s" % n)
     for v, T in zip((1, 2), got):
         require(T.dtype == np.float32 and np.array_equal(_canon(T), want),
@@ -727,15 +742,13 @@ def _abs_diff(g, w):
     return float(d.max())
 
 
-def _ladder_same(tag, got, want):
-    """Every output of two ladder runs and their event counts, equal bit
-    for bit (ewrt on int64 views).  Returns the largest absolute
+def _outputs_same(tag, names, got, want):
+    """Every output of two runs (host arrays, in the order of `names`)
+    equal bit for bit (f64 on int64 views).  Returns the largest absolute
     difference over them (_abs_diff)."""
     import numpy as np
-
-    from aletsch_tpu_torch.ops import ladder_kernel as LK
     err = 0.0
-    for name, g, w in zip(LK.OUT_NAMES + ("events",), got, want):
+    for name, g, w in zip(names, got, want):
         require(g.dtype == w.dtype and g.shape == w.shape,
                 "%s: %s differs in type or shape" % (tag, name))
         err = max(err, _abs_diff(g, w))
@@ -762,6 +775,7 @@ def _check_ladder(tag, states, refs, shape, dev, rows):
     arr = LK.pack_states(states, n, shape["V"], shape["E"], shape["H"],
                          shape["L"])
     kw = {"DMAX": shape["DMAX"], "DLOG": shape["DLOG"], "with_events": True}
+    names = LK.OUT_NAMES + ("events",)
     on_card = LK.batch_from_numpy(arr, dev)
     host = LK.ladder_plain(*LK.batch_from_numpy(arr, "cpu"), **kw)
     err = 0.0
@@ -772,14 +786,14 @@ def _check_ladder(tag, states, refs, shape, dev, rows):
         kern = [t.cpu().numpy() for t in LK.ladder_cuda(*sub, **kw)]
         plain = [t.cpu().numpy() for t in LK.ladder_plain(*sub, **kw)]
         want = [t[:r].numpy() for t in host]
-        err = max(err, _ladder_same(
+        err = max(err, _outputs_same(
             "%s ladder, %d rows: the kernel against the plain form on the "
-            "host CPU" % (tag, r), kern, want))
-        err = max(err, _ladder_same(
+            "host CPU" % (tag, r), names, kern, want))
+        err = max(err, _outputs_same(
             "%s ladder, %d rows: the kernel against the plain form on the "
-            "card" % (tag, r), kern, plain))
-        _ladder_same("%s ladder, %d rows: the plain form on the card against "
-                     "the host CPU's" % (tag, r), plain, want)
+            "card" % (tag, r), names, kern, plain))
+        _outputs_same("%s ladder, %d rows: the plain form on the card "
+                      "against the host CPU's" % (tag, r), names, plain, want)
     larm, ltgt, ndec, status = (t.numpy() for t in host[:4])
     decisions = compared = 0
     for b, ref in enumerate(refs):
@@ -904,65 +918,129 @@ def ladder_vs_plain(dev):
     return err, times, solve
 
 
-def torch_forms_vs_oracles(dev):
-    """Phase 2c.  Returns {form: {nrows: times}}, and under "ladder_err"
-    the ladder kernel's largest absolute difference from its plain form."""
+def _bridge_bound(args, outs):
+    """Roofline bound of one bridge call on these inputs: every input read
+    and every output written once, and as operations, for each vertex step
+    of each instance with m valid candidates, S compares for each one's
+    insert and m - 1 for selecting the best of them (the least a selection
+    can do), counted from this run's entry counts (pix >= 0; the source
+    holds one entry)."""
     import numpy as np
-    import torch
+
+    from aletsch_tpu_torch.ops.bridge_topk import S
+    P = args[0].cpu().numpy()
+    n, V, _ = P.shape
+    entries = (outs[2].cpu().numpy() >= 0).sum(axis=2)          # [n, V]
+    entries[:, 0] = 1
+    live = (P >= 0) & (P < V)
+    m = (entries[np.arange(n)[:, None, None], np.clip(P, 0, V - 1)]
+         * live).sum(axis=2)[:, 1:].astype(np.int64)
+    ops = int((S * m + np.maximum(m - 1, 0)).sum())
+    return _bound(_nbytes(*args, *outs), ops, F32_OPS_PER_S)
+
+
+def bridge_vs_plain(dev):
+    """Phase 2c, the bridge top-K: csrc/bridge.cu (bridge_cuda) against its
+    plain form on the card and on the host CPU, and the host CPU's against
+    the numpy oracle, at 1, 3, 37 and 64 rows, on a random and a tie-heavy
+    batch at the production shape and a tie-heavy one at the CPU tests'
+    shape; then its times and bound on the random batch, and the solver's
+    dispatch.  Returns (the largest absolute difference of kernel and plain
+    form, {nrows: times} of the kernel, {nrows: times} of
+    DeviceBridge.solve)."""
+    import numpy as np
 
     from aletsch_tpu_torch.ops import bridge_topk as BT
-    from aletsch_tpu_torch.ops import support as SP
-    res = {}
-
-    # bridge top-K
+    rows, names = (1, 3, 37, 64), ("ostk", "par", "pix")
     rng = np.random.default_rng(41)
     batches = {"random": BT.fuzz_batch(rng, 64),
-               "tie-heavy": BT.fuzz_batch(rng, 64, ties=True)}
-    names = ("ostk", "par", "pix")
+               "tie-heavy": BT.fuzz_batch(rng, 64, ties=True),
+               "small-shape tie-heavy": BT.fuzz_batch(rng, 64, 16, 4, 4,
+                                                      ties=True)}
+    err = 0.0
     for tag, batch in batches.items():
-        for n in (1, 64):
-            sub = [a[:n] for a in batch]
-            card = [t.cpu().numpy() for t in
-                    BT.bridge_dp(*BT.batch_from_numpy(*sub, dev))]
-            host = [t.numpy() for t in
-                    BT.bridge_dp(*BT.batch_from_numpy(*sub, "cpu"))]
-            oracle = BT.bridge_dp_host(*sub)
-            for name, c, h, o in zip(names, card, host, oracle):
-                require(c.dtype == np.int32 and np.array_equal(c, o),
-                        "bridge %s nrows=%d: %s on the card differs from "
-                        "the numpy oracle" % (tag, n, name))
-                require(np.array_equal(c, h), "bridge %s nrows=%d: %s on the "
-                        "card differs from the host CPU's" % (tag, n, name))
-            if tag == "tie-heavy" and n == 64:
-                ostk = card[0]
-                tied = int(((ostk[:, :, 0] == ostk[:, :, 1]).all(axis=-1)
-                            & (ostk[:, :, 0, 0] >= 0)).sum())
-                require(tied > 0, "the tie-heavy bridge batch has no ties")
-                log("bridge tie-heavy batch: %d of %d targets keep two "
-                    "entries with equal stacks, separated by candidate "
-                    "order only" % (tied, int((sub[3] >= 0).sum())))
-    log("bridge top-K on the card == numpy oracle == the host CPU's, "
-        "element for element, on a random and a tie-heavy batch at "
-        "V=%d E=%d T=%d, 1 and 64 rows" % (BT.DEFAULT_V, BT.DEFAULT_E,
-                                           BT.DEFAULT_T))
-    # the solver replays a CUDA graph: 5 live rows in a recorded batch of
-    # 8, stale rows behind them
-    want = BT.bridge_dp_host(*(a[:5] for a in batches["tie-heavy"]))
+        host = [t.numpy() for t in BT.bridge_plain(
+            *BT.batch_from_numpy(*batch, "cpu"))]
+        _outputs_same("%s bridge: the plain form on the host CPU against "
+                      "the numpy oracle" % tag, names, host,
+                      BT.bridge_dp_host(*batch))
+        on_card = BT.batch_from_numpy(*batch, dev)
+        for r in rows:
+            sub = [a[:r] for a in on_card]
+            kern = [t.cpu().numpy() for t in BT.bridge_cuda(*sub)]
+            plain = [t.cpu().numpy() for t in BT.bridge_plain(*sub)]
+            want = [h[:r] for h in host]
+            err = max(err, _outputs_same(
+                "%s bridge, %d rows: the kernel against the plain form on "
+                "the host CPU" % (tag, r), names, kern, want))
+            err = max(err, _outputs_same(
+                "%s bridge, %d rows: the kernel against the plain form on "
+                "the card" % (tag, r), names, kern, plain))
+        if tag == "tie-heavy":
+            ostk = host[0]
+            tied = int(((ostk[:, :, 0] == ostk[:, :, 1]).all(axis=-1)
+                        & (ostk[:, :, 0, 0] >= 0)).sum())
+            require(tied > 0, "the tie-heavy bridge batch has no ties")
+            log("bridge tie-heavy batch: %d of %d targets keep two entries "
+                "with equal stacks, separated by candidate order only"
+                % (tied, int((batch[3] >= 0).sum())))
+    log("bridge: csrc/bridge.cu == the plain form on the card == the plain "
+        "form on the host CPU == the numpy oracle, every output element for "
+        "element (max |diff| %g), at %s rows, on %s batches"
+        % (err, " / ".join(str(r) for r in rows), ", ".join(batches)))
+    log("ptxas bridge_kernel: %s" % "; ".join(_ptxas_lines("bridge_kernel")))
+
+    on_card = BT.batch_from_numpy(*batches["random"], dev)
+    times = {}
+    for n in rows:
+        a = [t[:n] for t in on_card]
+        outs = BT.bridge_cuda(*a)
+        t = {"device": _device_ms(lambda: BT.bridge_cuda(*a)),
+             "profiler": _profiled_ms(lambda: BT.bridge_cuda(*a),
+                                      "bridge_kernel"),
+             "call": _call_ms(lambda: BT.bridge_cuda(*a)),
+             "plain": _host_ms(lambda: [t.cpu() for t in BT.bridge_plain(
+                 *a)], 3)}
+        t["bound"], t["bound_by"], t["bytes"] = _bridge_bound(a, outs)
+        times[n] = t
+        log("bridge kernel nrows=%d (random batch): device %.4f ms (events, "
+            "launch cost outside), profiler %s ms; wrapper call %.4f ms; "
+            "plain form's call on the card %.2f ms (host clock, median of "
+            "3); bound %.7f ms (%s; %d bytes), share of it reached %.4f %%"
+            % (n, t["device"],
+               "%.4f" % t["profiler"] if t["profiler"] else "not measured",
+               t["call"], t["plain"], t["bound"], t["bound_by"], t["bytes"],
+               100.0 * t["bound"] / t["device"]))
+    # the solver: the live rows only, one launch, the host rows back
     bdev = BT.DeviceBridge(device=dev)
     for stage, a in zip((bdev.P, bdev.Wt, bdev.Lv, bdev.tgt),
                         batches["tie-heavy"]):
         stage[...] = a
-    for name, g, w in zip(names, bdev.solve(5), want):
-        require(g.dtype == np.int32 and g.flags["C_CONTIGUOUS"]
-                and np.array_equal(g, w), "bridge solve(5): %s differs from "
-                "the numpy oracle" % name)
-    on_card = BT.batch_from_numpy(*batches["tie-heavy"], dev)
-    res["bridge_eager"] = _form_times(
-        "bridge_dp, every operation launched as it comes,",
-        lambda n: [t.cpu() for t in BT.bridge_dp(*(a[:n] for a in on_card))],
-        (1, 64), 5)
-    res["bridge"] = _form_times("bridge solve(), replayed graph,",
-                                bdev.solve, (1, 64), 5)
+    want = BT.bridge_dp_host(*(a[:5] for a in batches["tie-heavy"]))
+    n0 = BT.bridge_cuda.launches
+    _outputs_same("bridge solve(5) against the numpy oracle", names,
+                  bdev.solve(5), want)
+    require(BT.bridge_cuda.launches == n0 + 1
+            and bdev.stats["bridge_launches"] == 1, "a bridge dispatch "
+            "launched the kernel %d times" % (BT.bridge_cuda.launches - n0))
+    solve = _form_times("bridge solve(), one kernel launch,", bdev.solve,
+                        rows, 5)
+    return err, times, solve
+
+
+def torch_forms_vs_oracles(dev):
+    """Phase 2c.  Returns {form: {nrows: times}}, and under "ladder_err" and
+    "bridge_err" the kernels' largest absolute differences from their
+    plain forms."""
+    import numpy as np
+    import torch
+
+    from aletsch_tpu_torch.ops import support as SP
+    res = {}
+
+    # bridge top-K
+    res["bridge_err"], res["bridge_kernel"], res["bridge"] = \
+        bridge_vs_plain(dev)
 
     # support reduce
     sdev = SP.DeviceSupport(device=dev)
@@ -1229,12 +1307,13 @@ def policy_measurements(smi):
                 "measure_coverage R=%d: the card's stats differ from "
                 "numpy's" % r["n_regions"])
     n = _launches()
-    require(n["drain"] > 0 and n["bottleneck"] > 0 and n["ladder"] > 0,
+    require(min(n.values()) > 0,
             "the policy's measurements launched %s: they must run the "
-            "drain, the bottleneck and the ladder kernels" % n)
+            "drain, the bottleneck, the ladder and the bridge kernels" % n)
     log("the policy's measurements launched the drain kernel %d times, "
-        "the bottleneck kernel %d times and the ladder kernel %d times"
-        % (n["drain"], n["bottleneck"], n["ladder"]))
+        "the bottleneck kernel %d times, the ladder kernel %d times and "
+        "the bridge kernel %d times"
+        % (n["drain"], n["bottleneck"], n["ladder"], n["bridge"]))
     f = out["measure"]["fit"]
     log("drain fit on this card: a %.4f ms, b %.3f us a graph, c %.3f us a "
         "graph, break_even_B %s; resident %.3f us a graph at B = 64"
@@ -1448,6 +1527,13 @@ def _check_new_path(tag, st, n, stages, trust):
         for k in keys[stage]:
             require(st.get(k, 0) > 0, "%s: %s is %s: the %s stage never "
                     "engaged" % (tag, k, st.get(k), stage))
+    if "bridge" in stages:
+        # one kernel launch a dispatch on one card
+        require(n["bridge"] == st["bridge_dispatches"]
+                == st["bridge_launches"] > 0,
+                "%s: %d bridge kernel launches (%d by the solver) for %d "
+                "dispatches" % (tag, n["bridge"], st["bridge_launches"],
+                                st["bridge_dispatches"]))
     if "ladder" in stages:
         # one kernel launch a dispatch on one card: no replay of the plain
         # body, no read of pc between events
@@ -2070,8 +2156,9 @@ def main(argv=None):
         new = res["new"]
         for tag, wall, nst, n in new["runs"]:
             log("new path run (%s) on %s: wall %.2f s; drain launches %d, "
-                "ladder kernel launches %d; device stats: %s"
-                % (tag, name, wall, n["drain"], n["ladder"],
+                "ladder kernel launches %d, bridge kernel launches %d; "
+                "device stats: %s"
+                % (tag, name, wall, n["drain"], n["ladder"], n["bridge"],
                    json.dumps(nst, sort_keys=True)))
             for form, unit in (("bridge", "instances"), ("support", "groups"),
                                ("ladder", "graphs")):
@@ -2152,6 +2239,17 @@ def main(argv=None):
         "plain_ms": forms["ladder_kernel"][3]["plain"],
         "bound_ms": forms["ladder_kernel"][3]["bound"],
         "bound_by": forms["ladder_kernel"][3]["bound_by"],
+        "library_ms": None}, {
+        "name": "bridge top-K",
+        "route": "cuda",
+        "source": "aletsch_tpu_torch/csrc/bridge.cu",
+        "replaces": "aletsch_tpu/ops/bridge_topk.py:54",
+        "launches": new["runs"][0][3]["bridge"],
+        "max_abs_err": forms["bridge_err"],
+        "ms": forms["bridge_kernel"][37]["device"],
+        "plain_ms": forms["bridge_kernel"][37]["plain"],
+        "bound_ms": forms["bridge_kernel"][37]["bound"],
+        "bound_by": forms["bridge_kernel"][37]["bound_by"],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""The port's bridge top-K DP (aletsch_tpu_torch/ops/bridge_topk.py) against
-the JAX package's (aletsch_tpu/ops/bridge_topk.py, the jitted XLA program
-on the CPU), both numpy oracles and the port's own bridge/solver.py DP, on
-the same numpy-seeded inputs.  Tolerance zero: every output is int32 and
-compared with array_equal, stable tie-breaks included."""
+"""The port's bridge top-K DP (aletsch_tpu_torch/ops/bridge_topk.py; on the
+CPU, bridge_dp runs its plain form) against the JAX package's
+(aletsch_tpu/ops/bridge_topk.py, the jitted XLA program on the CPU), both
+numpy oracles and the port's own bridge/solver.py DP, on the same
+numpy-seeded inputs.  Tolerance zero: every output is int32 and compared
+with array_equal, stable tie-breaks included."""
 
 import random
 from types import SimpleNamespace
@@ -222,30 +223,36 @@ def test_solver_ships_only_the_live_rows(nrows):
 
 
 def test_replay_buckets():
-    """Graphs are recorded for batch sizes that are powers of two, and only
-    on a CUDA device."""
+    """The ladder solver ships batch sizes that are powers of two; the
+    bridge solver replays no CUDA graph and ships its live rows only
+    (tests/test_torch_bridge_kernel.py)."""
     from aletsch_tpu_torch.ops import _replay
     assert [_replay.bucket(n, 64) for n in (1, 2, 3, 4, 5, 33, 64)] == \
         [1, 2, 4, 4, 8, 64, 64]
     assert _replay.bucket(50, 48) == 48
-    assert port.DeviceBridge(batch=2, maxv=4, maxe=2, maxt=2,
-                             device="cpu")._replays is None
+    assert not hasattr(_replay, "Replay")
+    solver = port.DeviceBridge(batch=2, maxv=4, maxe=2, maxt=2, device="cpu")
+    assert not hasattr(solver, "_replays")
+    assert "bucket" not in vars(port)
 
 
 @pytest.mark.cuda
-def test_bridge_replay_matches_eager_on_card():
-    """DeviceBridge on the card (a replayed CUDA graph) and bridge_dp there
-    (every operation launched as it comes) against the numpy oracle (needs
-    a GPU; python3 chip_smoke.py runs the full check)."""
+def test_bridge_kernel_matches_oracle_on_card():
+    """bridge_dp on the card (one launch of csrc/bridge.cu) and DeviceBridge
+    there against the numpy oracle, and one launch a dispatch (needs a GPU
+    and nvcc; python3 chip_smoke.py runs the full check)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     batch = port.fuzz_batch(np.random.default_rng(9), 8, ties=True)
     want = port.bridge_dp_host(*(a[:5] for a in batch))
+    n0 = port.bridge_cuda.launches
     for g, w in zip(_port([a[:5] for a in batch], "cuda"), want):
         assert np.array_equal(g, w)
+    assert port.bridge_cuda.launches == n0 + 1
     dev = port.DeviceBridge(batch=8, device="cuda")
     for dst, src in zip((dev.P, dev.Wt, dev.Lv, dev.tgt), batch):
         dst[...] = src
-    for _ in range(2):              # record, then replay
+    for _ in range(2):
         for g, w in zip(dev.solve(5), want):
             assert np.array_equal(g, w)
+    assert dev.stats["bridge_launches"] == 2

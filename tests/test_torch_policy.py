@@ -314,7 +314,7 @@ def test_cache_name_carries_platform_and_card(monkeypatch):
     monkeypatch.setenv("ALETSCH_TORCH_DEVICE", "cpu")
     _as_cuda(monkeypatch, card="NVIDIA H100 80GB HBM3")
     name = crossover.cache_path().rsplit("/", 1)[1]
-    assert name == "aletsch_torch_crossover_cuda_NVIDIA-H100-80GB-HBM3_v2.json"
+    assert name == "aletsch_torch_crossover_cuda_NVIDIA-H100-80GB-HBM3_v3.json"
     assert name != ref_crossover.CACHE_FMT.format(platform="cuda").rsplit(
         "/", 1)[1]
 
