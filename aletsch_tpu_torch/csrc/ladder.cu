@@ -42,33 +42,42 @@
 // events of the longest graph of the launch (tens of events a dispatch on
 // the production cohort), each a few dependent passes over the graph.
 //
-// Design (a simple first form, not tuned; the per-graph machine is in
-// ladder_machine.cuh, which a host compiler also builds for the CPU tests):
+// Design (the per-graph machine is in ladder_machine.cuh, its block
+// primitives in ladder_block.cuh; a host compiler builds both for the CPU
+// tests, at one thread and at several):
 // - one CTA of 256 threads per graph; the graph's whole state (edge table,
 //   hyper lists, decision log, the pending decomposition's pairs) and the
-//   per-event tables (per-vertex in/out lists in stamp order, degrees,
-//   ordered sums, smallest edges, candidate flags) live in dynamic shared
-//   memory, sized from the shape (40,576 bytes at the production shape,
-//   beside ~4 KB of static shared memory);
-// - per event the block rebuilds the tables in parallel: each edge finds
-//   its rank in its vertex's list (a count over the edges, then an
-//   atomicMax into the list slot, as the plain form's scatter-amax keeps
-//   the larger edge id where ranks collide past DMAX); each vertex takes
-//   its ordered sums in list order, its smallest edges (last minimum
-//   wins) and its candidate predicates, including the hyper-list
-//   dominate and extend queries, computed only where the arm that runs
-//   reads them;
-// - thread 0 then applies the event: the sequential vertex scans of the
-//   arm (later candidate wins on an equal ratio, early break at
-//   ratio < jump_ratio), the log append, the balance and the pairs of a
-//   decomposition, one pair's split and merge and the capacity checks
-//   (DLOG log slots, DMAX list length, E edge slots), with the same
-//   results as the plain form, overflow included;
-// - the event's hyper-list updates (replace a pair, replace a single,
-//   remove edges) come last in every arm, and each row of the hyper lists
-//   is independent, so the block applies them a row a thread after the
-//   event (left to thread 0, they made a dispatch twice as long:
-//   PERF.md, section 6).
+//   per-event tables live in dynamic shared memory, sized from the shape
+//   (69,764 bytes at the production shape);
+// - an event builds only the tables its arm reads (none for a pair of a
+//   decomposition, the degrees for the broken arm), and no pass runs an
+//   O(E) or O(H L) loop on one thread: degrees by shared atomics over the
+//   live edges, each edge landing in its vertex's bucket at the slot its
+//   count gave it; each edge's rank in its vertex's stamp-ordered list
+//   counted inside that bucket (the plain form's scatter-amax, ranks past
+//   DMAX sharing the last slot, is an atomicMax); each list's ordered sum
+//   and last-min-wins smallest edge on a thread of its own, lists and
+//   hyper rows at odd pitches so that a warp's threads hit 32 banks; each
+//   vertex's flags on a thread, the dominate and extend queries visiting
+//   only their edge's occurrences in an index of the hyper lists (rebuilt
+//   by a count, a block scan and a scatter where an arm that asks runs
+//   after the lists changed); the arm's first candidate by a block-wide
+//   minimum;
+// - thread 0 applies the event, on its scalar state held in registers:
+//   the order-dependent scans (later candidate wins on an equal ratio,
+//   early break at ratio < jump_ratio) over the flagged vertices only, the
+//   log append, the balance and the pairs of a decomposition over the
+//   root's lists' lengths, one pair's split and merge and the capacity
+//   checks (DLOG log slots, DMAX list length, E edge slots), with the same
+//   results as the plain form, overflow included; the broken arm's pass
+//   over the edges and the merged root's remaining degree then run on
+//   every thread;
+// - the event's hyper-list updates come last in every arm: the pair
+//   replacement a row a warp (ballots place the kept entries), then the
+//   single replacements and the removals an entry a thread.
+// The profiling instance (aletsch_ladder_f64_prof, never on the main path)
+// adds each pass's clock64() cycles to an output array (PERF.md, section 6,
+// has the split before and after this design).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,38 +89,37 @@ namespace {
 using namespace ladder;
 
 constexpr int THREADS = 256;
+static_assert(THREADS % 32 == 0 && THREADS / 32 <= MAX_SLOTS,
+              "a slot a warp");
 
-__global__ void __launch_bounds__(THREADS)
-ladder_kernel(In in, Out out, Shape s, int maxiter) {
+template <bool PROF>
+__global__ void __launch_bounds__(THREADS, 1)
+ladder_kernel(In in, Out out, Shape s, int maxiter,
+              unsigned long long* prof) {
     extern __shared__ __align__(16) char smem[];
     __shared__ Scal g;
     __shared__ Scratch x;
+    __shared__ Prof pf;
+    __shared__ int slots[2 * MAX_SLOTS];
     Smem m;
     carve(smem, s, &m);
-    const int b = blockIdx.x, tid = threadIdx.x;
-    load_graph(m, g, s, in, b, tid, THREADS);
-    run_graph(m, g, s, x, maxiter, tid, THREADS);
-    store_graph(m, g, s, out, b, tid, THREADS);
+    Blk b{(int)threadIdx.x, THREADS, slots, 0};
+    if (PROF)
+        for (int i = b.tid; i < NPROF; i += THREADS)
+            pf.acc[i] = 0;
+    load_graph(m, g, s, in, blockIdx.x, b);
+    run_graph<PROF>(m, g, s, x, maxiter, b, &pf);
+    store_graph(m, g, s, out, blockIdx.x, b);
+    if (PROF)
+        for (int i = b.tid; i < NPROF; i += THREADS)
+            atomicAdd(prof + i, pf.acc[i]);
 }
-
-}  // namespace
-
-// Run the ladder prefix of B graphs on `stream`, one block a graph;
-// returns the CUDA error (cudaErrorInvalidValue for a shape the kernel does
-// not take: DMAX > 256, or more shared memory than a block may have).  No
-// synchronisation.
-extern "C" int aletsch_ladder_f64(
-    const int* esrc, const int* edst, const double* ewrt, const int* estr,
-    const int* esin, const int* esout, const uint8_t* ealive,
-    const int* nedges, const int* nstamp, const uint8_t* nz,
-    const int* hedge, const int* hlen, const int* nv, const double* jump,
-    const double* smallr, const double* guard, const double* smin, int B,
-    int V, int E, int H, int L, int DMAX, int DLOG, int maxiter, int* larm,
-    int* ltgt, int* ndec, int* status, double* ewrt_out,
-    uint8_t* ealive_out, int* esrc_out, int* edst_out, int* estr_out,
-    int* nedges_out, int* hedge_out, int* hlen_out, uint8_t* nz_out,
-    int* events, cudaStream_t stream) {
-    const Shape s{V, E, H, L, DMAX, DLOG};
+// Launch one instance of the kernel: cudaErrorInvalidValue for a shape
+// the kernel does not take (DMAX > 256, or more shared memory than a block
+// may have).
+template <bool PROF>
+int launch(const In& in, const Out& out, const Shape& s, int B, int maxiter,
+           unsigned long long* prof, cudaStream_t stream) {
     if (!shape_ok(s))
         return cudaErrorInvalidValue;
     if (B <= 0)
@@ -127,21 +135,73 @@ extern "C" int aletsch_ladder_f64(
     if (err != cudaSuccess)
         return err;
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, ladder_kernel);
+    err = cudaFuncGetAttributes(&attr, ladder_kernel<PROF>);
     if (err != cudaSuccess)
         return err;
     if (bytes + attr.sharedSizeBytes > (size_t)limit)
         return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(ladder_kernel,
+    err = cudaFuncSetAttribute(ladder_kernel<PROF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
     if (err != cudaSuccess)
         return err;
-    const In in{esrc, edst, ewrt, estr, esin, esout, ealive, nedges,
-                nstamp, nz, hedge, hlen, nv, jump, smallr, guard, smin};
-    const Out out{larm, ltgt, ndec, status, ewrt_out, ealive_out,
-                  esrc_out, edst_out, estr_out, nedges_out, hedge_out,
-                  hlen_out, nz_out, events};
-    ladder_kernel<<<B, THREADS, bytes, stream>>>(in, out, s, maxiter);
+    ladder_kernel<PROF><<<B, THREADS, bytes, stream>>>(in, out, s, maxiter,
+                                                        prof);
     return cudaGetLastError();
+}
+
+}  // namespace
+
+// the C entries' inputs and outputs as the machine takes them: the
+// per-graph strides of the 17 inputs (in elements) from the host array
+// in_stride
+#define LADDER_IN_OUT                                                       \
+    In in{esrc, edst, ewrt, estr, esin, esout, ealive, nedges, nstamp, nz,  \
+          hedge, hlen, nv, jump, smallr, guard, smin, {}};                  \
+    for (int i = 0; i < 17; ++i)                                            \
+        in.st[i] = in_stride[i];                                            \
+    const Out out{larm, ltgt, ndec, status, ewrt_out, ealive_out,           \
+                  esrc_out, edst_out, estr_out, nedges_out, hedge_out,      \
+                  hlen_out, nz_out, events};
+
+// Run the ladder prefix of B graphs on `stream`, one block a graph; graph
+// b's row of input i starts b * in_stride[i] elements into it (each row
+// contiguous), the outputs are dense, and an output whose pointer is null
+// is not stored.  Returns the CUDA error (cudaErrorInvalidValue for a
+// shape the kernel does not take: DMAX > 256, or more shared memory than a
+// block may have).  No synchronisation.
+extern "C" int aletsch_ladder_f64(
+    const int* esrc, const int* edst, const double* ewrt, const int* estr,
+    const int* esin, const int* esout, const uint8_t* ealive,
+    const int* nedges, const int* nstamp, const uint8_t* nz,
+    const int* hedge, const int* hlen, const int* nv, const double* jump,
+    const double* smallr, const double* guard, const double* smin, int B,
+    int V, int E, int H, int L, int DMAX, int DLOG, int maxiter, int* larm,
+    int* ltgt, int* ndec, int* status, double* ewrt_out,
+    uint8_t* ealive_out, int* esrc_out, int* edst_out, int* estr_out,
+    int* nedges_out, int* hedge_out, int* hlen_out, uint8_t* nz_out,
+    int* events, const long long* in_stride, cudaStream_t stream) {
+    LADDER_IN_OUT
+    return launch<false>(in, out, Shape{V, E, H, L, DMAX, DLOG}, B, maxiter,
+                         nullptr, stream);
+}
+
+// aletsch_ladder_f64's profiling instance, never on the main path: the
+// same results, and each pass's clock64() cycles added to prof (NPROF
+// zeroed u64 on the card: cycles[pass][pc], then events[pc]).
+extern "C" int aletsch_ladder_f64_prof(
+    const int* esrc, const int* edst, const double* ewrt, const int* estr,
+    const int* esin, const int* esout, const uint8_t* ealive,
+    const int* nedges, const int* nstamp, const uint8_t* nz,
+    const int* hedge, const int* hlen, const int* nv, const double* jump,
+    const double* smallr, const double* guard, const double* smin, int B,
+    int V, int E, int H, int L, int DMAX, int DLOG, int maxiter, int* larm,
+    int* ltgt, int* ndec, int* status, double* ewrt_out,
+    uint8_t* ealive_out, int* esrc_out, int* edst_out, int* estr_out,
+    int* nedges_out, int* hedge_out, int* hlen_out, uint8_t* nz_out,
+    int* events, const long long* in_stride, unsigned long long* prof,
+    cudaStream_t stream) {
+    LADDER_IN_OUT
+    return launch<true>(in, out, Shape{V, E, H, L, DMAX, DLOG}, B, maxiter,
+                        prof, stream);
 }

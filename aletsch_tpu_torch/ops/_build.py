@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("drain.cu", "bottleneck.cu", "ladder.cu", "bridge.cu")
 # headers the sources include: in the hash, not compiled alone
-HEADERS = ("ladder_machine.cuh", "bridge_machine.cuh")
+HEADERS = ("ladder_machine.cuh", "ladder_block.cuh", "bridge_machine.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "aletsch_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -35,10 +35,11 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 SOURCE_FLAGS = {"ladder.cu": ("-fmad=false",)}
 
 # aletsch_ladder_f64's arguments but the stream: the 17 inputs, B and the
-# shape, maxiter, the 13 outputs and the event counts (ladder_host.cpp's
-# aletsch_ladder_host takes the same)
+# shape, maxiter, the 13 outputs and the event counts, the inputs'
+# per-graph strides (ladder_host.cpp's aletsch_ladder_host takes the same,
+# then the threads of its block)
 LADDER_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p] * 14)
+                   + [ctypes.c_void_p] * 15)
 # aletsch_bridge_topk's arguments but the stream: P, Wt, Lv, tgt, then n,
 # V, E, T, then ostk, par, pix (bridge_host.cpp's aletsch_bridge_host takes
 # the same)
@@ -135,6 +136,8 @@ def load_library():
             fn.restype = ctypes.c_int
         lib.aletsch_ladder_f64.argtypes = LADDER_ARGTYPES + [p]
         lib.aletsch_ladder_f64.restype = ctypes.c_int
+        lib.aletsch_ladder_f64_prof.argtypes = LADDER_ARGTYPES + [p, p]
+        lib.aletsch_ladder_f64_prof.restype = ctypes.c_int
         lib.aletsch_bridge_topk.argtypes = BRIDGE_ARGTYPES + [p]
         lib.aletsch_bridge_topk.restype = ctypes.c_int
         _LIB = lib

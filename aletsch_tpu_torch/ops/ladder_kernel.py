@@ -46,6 +46,7 @@ graph still running at the iteration cap reads out as OVERFLOW.
 
 from __future__ import annotations
 
+import ctypes
 import random
 
 import numpy as np
@@ -948,10 +949,15 @@ _OUT_SPEC = (
     (torch.bool, "BV"), (torch.int32, "B"))
 
 
-def kernel_args(args, DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG, maxiter=None):
+def kernel_args(args, DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG, maxiter=None,
+                outs=None):
     """Check ladder()'s 17 inputs for the kernel and allocate its outputs.
-    Returns (the outputs: the 13 of ladder() and the event counts, the C
-    function's arguments but the stream: pointers and the shape).  Raises
+    Each input's graph rows may lie at any stride, each row contiguous (the
+    solver's views into its packed staging buffer).  `outs`: the outputs
+    to write instead, in the order of ladder()'s 13 and the event counts,
+    dense, None for an output the kernel is not to store.  Returns (the
+    outputs, the C function's arguments but the stream: pointers, the
+    shape, the output pointers and the inputs' per-graph strides).  Raises
     on a wrong type, shape, device or layout."""
     if len(args) != len(ARG_NAMES):
         raise TypeError("the ladder takes %d inputs, got %d"
@@ -967,18 +973,55 @@ def kernel_args(args, DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG, maxiter=None):
         if t.device != dev:
             raise ValueError("%s is on %s, esrc on %s" % (name, t.device,
                                                           dev))
-        if not t.is_contiguous():
-            raise ValueError("%s must be contiguous" % name)
+        if not t[:1].is_contiguous():
+            raise ValueError("%s must be contiguous in each graph's row"
+                             % name)
     if not 1 <= DMAX <= 256 or DLOG < 1:
         raise ValueError("DMAX must be in [1, 256] and DLOG >= 1, got %d, "
                          "%d" % (DMAX, DLOG))
     maxiter = 4 * V * V if maxiter is None else int(maxiter)
-    outs = tuple(torch.empty(tuple(dims[c] for c in letters), dtype=dtype,
-                             device=dev) for dtype, letters in _OUT_SPEC)
+    if outs is None:
+        outs = tuple(torch.empty(tuple(dims[c] for c in letters),
+                                 dtype=dtype, device=dev)
+                     for dtype, letters in _OUT_SPEC)
+    if len(outs) != len(_OUT_SPEC):
+        raise TypeError("the ladder writes %d outputs, got %d"
+                        % (len(_OUT_SPEC), len(outs)))
+    for name, (dtype, letters), t in zip(OUT_NAMES + ("events",), _OUT_SPEC,
+                                         outs):
+        shape = tuple(dims[c] for c in letters)
+        if t is not None and (t.dtype != dtype or tuple(t.shape) != shape
+                              or t.device != dev or not t.is_contiguous()):
+            raise ValueError("output %s must be a contiguous %s %s on %s"
+                             % (name, dtype, shape, dev))
+    strides = (ctypes.c_longlong * len(args))(
+        *(t.stride(0) for t in args))
     c_args = ([t.data_ptr() for t in args] + [B, V, E, H, L, DMAX, DLOG,
                                                maxiter]
-              + [t.data_ptr() for t in outs])
+              + [None if t is None else t.data_ptr() for t in outs]
+              + [strides])
     return outs, c_args
+
+
+def launch(c_args, dev, prof=None):
+    """One launch of the hand-written kernel (csrc/ladder.cu) on the current
+    stream of card `dev`, with kernel_args' arguments; with `prof`, a
+    zeroed int64 tensor on the card, the profiling instance, which adds
+    each pass's cycles to it and is not counted in ladder_cuda.launches.
+    No synchronisation."""
+    from ._build import load_library
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if prof is None:
+            err = lib.aletsch_ladder_f64(*c_args, stream)
+        else:
+            err = lib.aletsch_ladder_f64_prof(*c_args, prof.data_ptr(),
+                                              stream)
+    if err != 0:
+        raise RuntimeError("ladder kernel launch failed: cudaError %d" % err)
+    if prof is None:
+        ladder_cuda.launches += 1
 
 
 def ladder_cuda(*args, DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG, maxiter=None,
@@ -986,28 +1029,41 @@ def ladder_cuda(*args, DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG, maxiter=None,
     """ladder_plain's function as one launch of the hand-written kernel
     (csrc/ladder.cu) on the current stream of the inputs' card: every graph
     runs to its end on the card, one block a graph, with no host read in
-    between.  CUDA tensors of ladder_plain's types only, contiguous.  With
-    `counters`, the largest event count is read back (one sync) and added
-    to counters["ladder_iterations"]."""
+    between.  CUDA tensors of ladder_plain's types only, each graph's row
+    contiguous.  With `counters`, the largest event count is read back (one
+    sync) and added to counters["ladder_iterations"]."""
     dev = args[0].device
     if dev.type != "cuda":
         raise ValueError("ladder_cuda takes CUDA tensors, got %s" % dev)
     outs, c_args = kernel_args(args, DMAX, DLOG, maxiter)
     if args[0].shape[0] > 0:
-        from ._build import load_library
-        lib = load_library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.aletsch_ladder_f64(*c_args, stream)
-        if err != 0:
-            raise RuntimeError("ladder kernel launch failed: cudaError %d"
-                               % err)
-        ladder_cuda.launches += 1
+        launch(c_args, dev)
     _count(counters, outs[-1])
     return outs if with_events else outs[:-1]
 
 
 ladder_cuda.launches = 0    # kernel launches since the last reset
+
+# the profiling instance's passes (csrc/ladder_machine.cuh, P_BUILD ..
+# P_APPLY) and pc kinds: its output is cycles[pass][pc], then events[pc]
+PROF_PASSES = ("build", "lists", "flags", "hyper queries", "event", "post",
+               "pair", "entries")
+PROF_PCS = ("broken", "fast", "tv1", "small", "decomp")
+
+
+def ladder_profile(*args, DMAX=DEFAULT_DMAX, DLOG=DEFAULT_DLOG,
+                   maxiter=None):
+    """One launch of the kernel's profiling instance (never on the main
+    path; not counted in ladder_cuda.launches): ladder_cuda's outputs with
+    the event counts, and the clock64() cycles each pass took, summed over
+    the graphs, as an int64 array [passes, pcs] beside the events [pcs]."""
+    npc = len(PROF_PCS)
+    prof = torch.zeros((len(PROF_PASSES) + 1) * npc, dtype=torch.int64,
+                       device=args[0].device)
+    outs, c_args = kernel_args(args, DMAX, DLOG, maxiter)
+    launch(c_args, args[0].device, prof)
+    p = prof.cpu().numpy()
+    return outs, p[:-npc].reshape(len(PROF_PASSES), npc), p[-npc:]
 
 
 def ladder(*args, **kw):

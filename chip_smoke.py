@@ -51,11 +51,14 @@ Phases, each of which exits non-zero on failure:
    shape, and its logs against the dense reference machine
    (ops/ladder_ref.py) decision for decision; what ptxas reported for the
    kernel; its device time (CUDA events and the profiler), the wrapper
-   call's time, the plain form's time on the card and its bound at each
-   row count; then the solver (DeviceLadder.solve: one launch a
-   dispatch) against the kernel.  For each solver: the host clock of a
-   dispatch, and over one dispatch under the profiler its device time and
-   number of device kernels and copies;
+   call's time and its bound at each row count on the fuzz states (the
+   plain form's time on the card at 3 and 64 rows), and its device time
+   and bound on the fixtures; its profiling instance (ladder_profile) at 3 and 64 rows of
+   both, equal to the kernel in every output, with each pass's cycles an
+   event, overall and by arm; then the solver (DeviceLadder.solve: one
+   copy in, one launch, one copy out a dispatch) against the kernel.  For
+   each solver: the host clock of a dispatch, and over one dispatch under
+   the profiler its device time and number of device kernels and copies;
 2d. the device forms this port runs as plain PyTorch beside those, on the
    card against their oracles: region_stats against region_stats_host in
    f64 (mx exact, ave and dev within 1e-6) at 256 and 65,536 regions;
@@ -842,6 +845,43 @@ def _ptxas_lines(kernel):
     return out
 
 
+def _ladder_split(LK, batches):
+    """The profiling instance (ladder_profile: clock64() at each barrier of
+    the block's loop) at 3 and 64 rows of each batch: its outputs must
+    equal the kernel's; logs each pass's cycles an event, overall and by
+    the arm that ran (pc)."""
+    import numpy as np
+    names = LK.OUT_NAMES + ("events",)
+    for tag, on_card in batches:
+        for n in (3, 64):
+            a = [t[:n] for t in on_card]
+            outs, cyc, ev = LK.ladder_profile(*a)
+            want = [t.cpu().numpy() for t in LK.ladder_cuda(
+                *a, with_events=True)]
+            _outputs_same("%s ladder, %d rows: the profiling instance "
+                          "against the kernel" % (tag, n), names,
+                          [t.cpu().numpy() for t in outs], want)
+            total = int(ev.sum())
+            require(total == int(want[-1].sum()), "%s: the profiling "
+                    "instance counted %d events, the kernel %d"
+                    % (tag, total, int(want[-1].sum())))
+            every = cyc.sum(axis=1)
+            log("ladder pass split, %s, %d rows (%d events): cycles an "
+                "event %s; all passes %.0f"
+                % (tag, n, total, ", ".join(
+                    "%s %.0f (%.1f %%)" % (p, c / total, 100.0 * c
+                                           / every.sum())
+                    for p, c in zip(LK.PROF_PASSES, every)),
+                   every.sum() / total))
+            for k, pc in enumerate(LK.PROF_PCS):
+                if ev[k]:
+                    log("  pc %s: %d events, cycles an event %s"
+                        % (pc, ev[k], ", ".join(
+                            "%s %.0f" % (p, c / ev[k]) for p, c in
+                            zip(LK.PROF_PASSES, cyc[:, k]))))
+            require(np.all(cyc >= 0), "negative cycle counts")
+
+
 def ladder_vs_plain(dev):
     """Phase 2c, the ladder: csrc/ladder.cu against its plain form on fuzz
     states at the CPU tests' shape and at the production shape and on the
@@ -871,7 +911,7 @@ def ladder_vs_plain(dev):
     # the first 64 fixtures that fit: the host CPU's plain run costs the
     # same a row as a fuzz state's
     states = LK.fixture_states(fixtures, **shapes)[:64]
-    n, _, _, e = _check_ladder("fixture", states, states, full, dev, rows)
+    n, _, fix, e = _check_ladder("fixture", states, states, full, dev, rows)
     err = max(err, e)
     require(seen >= 80 and n >= 64, "too few ladder states compared with "
             "the reference machine (%d fuzz, %d fixtures)" % (seen, n))
@@ -886,20 +926,37 @@ def ladder_vs_plain(dev):
              "profiler": _profiled_ms(lambda: LK.ladder_cuda(*a),
                                       "ladder_kernel"),
              "call": _call_ms(lambda: LK.ladder_cuda(*a)),
+             # the plain form at 3 and 64 rows only (the script's time)
              "plain": _host_ms(lambda: [t.cpu() for t in LK.ladder_plain(
-                 *a)], 2),
+                 *a)], 2) if n in (3, 64) else None,
              "events": int(outs[-1].max()), "sum": int(outs[-1].sum())}
         t["bound"], t["bound_by"], t["bytes"] = _ladder_bound(a, outs)
         times[n] = t
         log("ladder kernel nrows=%d (%d events in the longest graph, %d in "
             "all): device %.4f ms (events, launch cost outside), profiler "
-            "%s ms; wrapper call %.4f ms; plain form's call %.2f ms (host "
+            "%s ms; wrapper call %.4f ms; plain form's call %s (host "
             "clock, median of 2); bound %.7f ms (%s; %d bytes), share of it "
             "reached %.4f %%"
             % (n, t["events"], t["sum"], t["device"],
                "%.4f" % t["profiler"] if t["profiler"] else "not measured",
-               t["call"], t["plain"], t["bound"], t["bound_by"], t["bytes"],
+               t["call"], "%.2f ms" % t["plain"] if t["plain"] is not None
+               else "not timed", t["bound"], t["bound_by"], t["bytes"],
                100.0 * t["bound"] / t["device"]))
+    fix_card = LK.batch_from_numpy(fix, dev)
+    for n in rows:
+        a = [t[:n] for t in fix_card]
+        outs = LK.ladder_cuda(*a, with_events=True)
+        t = {"device": _device_ms(lambda: LK.ladder_cuda(*a)),
+             "events": int(outs[-1].max()), "sum": int(outs[-1].sum())}
+        t["bound"], t["bound_by"], t["bytes"] = _ladder_bound(a, outs)
+        times["fixture", n] = t
+        log("ladder kernel on the first %d fixtures (%d events in the "
+            "longest graph, %d in all): device %.4f ms; bound %.7f ms (%s), "
+            "share of it reached %.4f %%"
+            % (n, t["events"], t["sum"], t["device"], t["bound"],
+               t["bound_by"], 100.0 * t["bound"] / t["device"]))
+    _ladder_split(LK, (("production-shape fuzz", on_card),
+                       ("fixture", fix_card)))
     # the solver: the staged rows, one launch, the host rows back
     ldev = DeviceLadder(device=dev)
     ldev.stage_states(fuzz, 64)
@@ -2171,11 +2228,14 @@ def main(argv=None):
                         % (form, d, nst["%s_%s" % (form, unit)] / d, unit,
                            secs, secs / d * 1e3, 100.0 * secs / wall,
                            "; %d events in the longest graphs, %.1f a "
-                           "dispatch; %d decisions, agree %d of %d"
+                           "dispatch; %d decisions, agree %d of %d; the "
+                           "kernel's device time %.3f s in all (%.4f ms a "
+                           "launch; CUDA events around each launch)"
                            % (nst["ladder_iterations"],
                               nst["ladder_iterations"] / d,
                               nst["ladder_decisions"], nst["ladder_agree"],
-                              nst["ladder_total"])
+                              nst["ladder_total"], nst["ladder_kernel_time"],
+                              nst["ladder_kernel_time"] / d * 1e3)
                            if form == "ladder" else ""))
         sc, jobs, tr = res["scoring"], res["jobs"], res["trace"]
         log("new phases on %s: scores CSV byte-identical over %d feature "

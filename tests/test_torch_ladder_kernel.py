@@ -6,13 +6,16 @@ the whole batch in lockstep: these tests pin the independence that relies
 on (a row run alone equals its row of the batch, at the iteration cap
 too, and both equal the JAX package's program), the per-graph event counts
 the kernel reports, the dispatcher's CPU route, the wrapper's checks, the
-C signature against its ctypes declaration and the build's flags.  The
-kernel's per-graph machine (csrc/ladder_machine.cuh) is also built here
-by the host compiler for one thread (csrc/ladder_host.cpp) and held
-against the plain form, bit for bit, on seeded states, the ladder
-fixtures and shapes that force every overflow.  The card's own check is
-the cuda-marked test at the end and chip_smoke.py's phase 2c."""
+C signature against its ctypes declaration, the build's flags, and the
+solver's dispatch (its packed staging rows, one copy in, one launch, one
+copy out).  The kernel's per-graph machine (csrc/ladder_machine.cuh) is
+also built here by the host compiler (csrc/ladder_host.cpp) and held, on
+one thread, against the plain form, bit for bit, on seeded states, the
+ladder fixtures and shapes that force every overflow
+(tests/test_torch_ladder_threads.py runs it on several).  The card's own
+check is the cuda-marked test at the end and chip_smoke.py's phase 2c."""
 
+import contextlib
 import ctypes
 import math
 import os
@@ -221,7 +224,7 @@ def test_c_signatures_match_the_ctypes_declarations():
         + [ctypes.c_void_p]
     with open(os.path.join(_build.CSRC, "ladder_host.cpp")) as fh:
         host = _c_params(fh.read(), "aletsch_ladder_host")
-    assert host == params[:-1]
+    assert host == params[:-1] + ["int nt"]
     names = [p.rsplit(None, 1)[1].lstrip("*") for p in params]
     assert names[:17] == list(LK.ARG_NAMES)
     assert names[17:25] == ["B", "V", "E", "H", "L", "DMAX", "DLOG",
@@ -231,6 +234,7 @@ def test_c_signatures_match_the_ctypes_declarations():
 def test_ladder_source_and_flags_are_in_the_build_hash(monkeypatch):
     assert "ladder.cu" in _build.SOURCES
     assert "ladder_machine.cuh" in _build.HEADERS
+    assert "ladder_block.cuh" in _build.HEADERS
     assert _build.SOURCE_FLAGS["ladder.cu"] == ("-fmad=false",)
     flags = " ".join(_build.NVCC_FLAGS) + " ".join(
         " ".join(f) for f in _build.SOURCE_FLAGS.values())
@@ -249,74 +253,191 @@ def test_ladder_source_and_flags_are_in_the_build_hash(monkeypatch):
 
 def test_solver_on_a_card_launches_once_and_never_reads_pc(monkeypatch):
     """DeviceLadder with its device switched to a card (tensors stay on
-    the CPU here): a dispatch is one call of the dispatcher ladder(), which
-    sends a card's tensors to the kernel (the test above), over the staged
-    rows padded to a power of two, and nothing reads pc on the host."""
+    the CPU here): a dispatch is one host-to-device copy of the packed rows
+    (padded to a power of two) into the card's input buffer, one launch of
+    the kernel's entry over views of it that stores only the four outputs
+    the solver reads and the event counts, one device-to-host copy of those
+    into the pinned buffer and one sync; nothing reads pc on the host, the
+    results are C-contiguous int32 host arrays of their own, and a second
+    dispatch of as many rows checks and builds nothing again."""
     arr, args = _args(range(8))
-    B = len(arr["nv"])
-    want = LK.ladder_plain(*args, DMAX=KW["DMAX"], DLOG=KW["DLOG"])
+    want = LK.ladder_plain(*args, DMAX=KW["DMAX"], DLOG=KW["DLOG"],
+                           with_events=True)
     solver = DeviceLadder(batch=8, maxv=KW["V"], maxe=KW["E"],
                           maxh=KW["H"], maxl=KW["L"], dmax=KW["DMAX"],
                           dlog=KW["DLOG"], device="cpu")
     solver.stage_states(arr, 5)
-    calls, outside = [], []
-    plain, read_pc = LK.ladder_plain, LK._read_pc
+    log, outside = [], []
+    plain, read_pc, checks = LK.ladder_plain, LK._read_pc, LK.kernel_args
+    D = KW["DLOG"]
 
-    def fake_kernel(*a, DMAX, DLOG, counters):
+    def fake_launch(c_args, dev, prof=None):
         """The kernel's results, from the plain loop (whose own reads of
-        pc are its own)."""
-        calls.append(a[0].shape[0])
-        calls.append("in")
+        pc are its own), written where the launch's pointers say."""
+        assert prof is None and dev.type == "cuda"
+        (dpacked, buf, _), = [p for p in solver._plans.values()
+                              if p[2] is c_args]
+        rows = dpacked.shape[0]
+        log.append(("launch", rows))
+        ptrs = c_args[25:39]
+        assert [i for i, p in enumerate(ptrs) if p is not None] \
+            == [0, 1, 2, 3, 13]
+        log.append("in")
         try:
-            return plain(*a, DMAX=DMAX, DLOG=DLOG, counters=counters)
+            got = plain(*ladder_device.input_views(dpacked, solver.layout),
+                        DMAX=KW["DMAX"], DLOG=D, with_events=True)
         finally:
-            calls.pop()
+            log.pop()
+        for p, g in zip([ptrs[i] for i in (0, 1, 2, 3, 13)],
+                        [got[i] for i in (0, 1, 2, 3, 13)]):
+            n = g.numel()
+            at = (p - buf.data_ptr()) // 4
+            copy(buf[at:at + n], g.reshape(-1))
 
     def watch(pc):
-        if calls[-1:] != ["in"]:
+        if log[-1:] != ["in"]:
             outside.append(pc)
         return read_pc(pc)
 
-    to = torch.Tensor.to
+    def counted_checks(*a, **k):
+        log.append("checks")
+        return checks(*a, **k)
 
-    def stay_on_cpu(self, *a, **k):
+    to, copy, empty = torch.Tensor.to, torch.Tensor.copy_, torch.empty
+    out_ptr = solver._out.data_ptr()
+
+    def to_card(self, *a, **k):
         if a and isinstance(a[0], torch.device) and a[0].type == "cuda":
+            log.append(("to card", tuple(self.shape)))
             return self
         return to(self, *a, **k)
 
+    def logged_copy(self, src, non_blocking=False):
+        cards = [c[0].data_ptr() for c in solver._cards.values()]
+        if self.data_ptr() in cards:
+            log.append(("h2d", tuple(src.shape), non_blocking))
+        elif self.data_ptr() == out_ptr:
+            log.append(("d2h", src.numel(), non_blocking))
+        return copy(self, src, non_blocking)
+
+    def empty_on_card(*a, device=None, **k):
+        return empty(*a, **k)
+
+    class Stream:
+        def synchronize(self):
+            log.append("sync")
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, end):
+            return 0.25
+
     solver.device = torch.device("cuda")
-    monkeypatch.setattr(ladder_device.lk, "ladder", fake_kernel)
+    monkeypatch.setattr(ladder_device.lk, "launch", fake_launch)
+    monkeypatch.setattr(ladder_device.lk, "kernel_args", counted_checks)
     monkeypatch.setattr(ladder_device.lk, "_read_pc", watch)
-    monkeypatch.setattr(torch.Tensor, "to", stay_on_cpu)
-    larm, ltgt, ndec, status = solver.solve(5)
-    assert calls == [8] and not outside
-    assert B >= 5
-    for g, w in zip((larm, ltgt, ndec, status), want):
-        assert g.flags["C_CONTIGUOUS"] and np.array_equal(g, w[:5].numpy())
-    assert solver.stats["ladder_iterations"] > 0
+    monkeypatch.setattr(torch.Tensor, "to", to_card)
+    monkeypatch.setattr(torch.Tensor, "copy_", logged_copy)
+    monkeypatch.setattr(torch, "empty", empty_on_card)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: Stream())
+    dispatch = [("h2d", (8, solver.row_bytes), True), ("launch", 8),
+                ("d2h", 8 * (2 * D + 3), True), "sync"]
+    for first in (True, False):
+        del log[:]
+        larm, ltgt, ndec, status = solver.solve(5)
+        assert log == (["checks"] if first else []) + dispatch
+        assert not outside
+        for g, w in zip((larm, ltgt, ndec, status), want):
+            assert g.dtype == np.int32 and g.flags["C_CONTIGUOUS"]
+            assert not np.shares_memory(g, solver._out.numpy())
+            assert np.array_equal(g, w[:5].numpy())
+    assert solver.stats["ladder_iterations"] == \
+        2 * int(want[-1][:5].max()) > 0
+    assert solver.stats["ladder_kernel_time"] == 2 * 0.25e-3
+
+
+def test_packed_rows_are_the_staging_arrays_field_by_field():
+    """The solver's one staging buffer: every field at a 16-byte aligned
+    offset of a row of its own bytes, the 12 staging arrays numpy views of
+    it in the C ABI's dtypes, and the kernel's 17 inputs views of the same
+    bytes that equal, field by field, the arrays pack_states gives."""
+    arr, args = _args(range(6))
+    solver = DeviceLadder(batch=8, maxv=KW["V"], maxe=KW["E"],
+                          maxh=KW["H"], maxl=KW["L"], dmax=KW["DMAX"],
+                          dlog=KW["DLOG"], device="cpu")
+    solver.stage_states(arr, 6)
+    layout, R = ladder_device.packed_layout(KW["V"], KW["E"], KW["H"],
+                                            KW["L"])
+    assert R == solver.row_bytes and R % ladder_device.ALIGN == 0
+    assert solver._packed.shape == (8, R)
+    assert solver._packed.dtype == torch.uint8
+    names = [f[0] for f in layout]
+    assert names == ["esrc", "edst", "ewrt", "estr", "esin", "esout",
+                     "ealive", "meta3", "nz", "hedge", "hlen", "scal"]
+    end = 0
+    base = solver._packed.numpy().ctypes.data
+    for (name, dtype, shape, off, _), got in zip(layout, solver.row(3)):
+        assert off % ladder_device.ALIGN == 0 and off >= end, name
+        end = off + int(np.prod(shape)) * dtype.itemsize
+        view = getattr(solver, name)
+        assert view.dtype == dtype and view.shape == (8,) + shape, name
+        assert view.strides[0] == R and view[0].flags["C_CONTIGUOUS"]
+        assert view.ctypes.data == base + off, name
+        assert got.ctypes.data == base + 3 * R + off, name
+    assert end <= R
+    views = ladder_device.input_views(solver._packed[:6], layout)
+    want = LK.batch_from_numpy(arr, "cpu")
+    assert len(views) == len(LK.ARG_NAMES)
+    for name, v, w in zip(LK.ARG_NAMES, views, want):
+        assert v.dtype == w.dtype and v.shape == w.shape, name
+        assert torch.equal(v, w), name
+        assert v.untyped_storage().data_ptr() == \
+            solver._packed.untyped_storage().data_ptr(), name
+    # the kernel takes these views as they are, a graph a row apart
+    _, c_args = LK.kernel_args(views, KW["DMAX"], KW["DLOG"])
+    strides = list(c_args[-1])
+    for name, v, st in zip(LK.ARG_NAMES, views, strides):
+        assert st * v.element_size() == R, name
 
 
 # ------------------------------- the kernel's machine, built for the host
 
-@pytest.fixture(scope="module")
-def host_machine(tmp_path_factory):
-    """csrc/ladder_host.cpp built with g++ for one thread (no fused
-    multiply-add); its entry takes ladder_cuda's arguments."""
+def build_host_library(directory):
+    """csrc/ladder_host.cpp built with g++ (C++20 for std::barrier and
+    std::atomic_ref; no fused multiply-add) into `directory`; the ctypes
+    library with its entries declared.  Skips without g++."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to build the kernel's machine for the host")
-    lib = str(tmp_path_factory.mktemp("ladder_host") / "libladder_host.so")
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-o", lib,
+    lib = str(directory / "libladder_host.so")
+    subprocess.run([cxx, "-std=c++20", "-O2", "-ffp-contract=off",
+                    "-pthread", "-shared", "-fPIC", "-o", lib,
                     os.path.join(_build.CSRC, "ladder_host.cpp")],
                    check=True, capture_output=True, timeout=300)
-    fn = ctypes.CDLL(lib).aletsch_ladder_host
-    fn.argtypes = _build.LADDER_ARGTYPES
-    fn.restype = ctypes.c_int
+    dll = ctypes.CDLL(lib)
+    dll.aletsch_ladder_host.argtypes = _build.LADDER_ARGTYPES + [ctypes.c_int]
+    dll.aletsch_ladder_host.restype = ctypes.c_int
+    return dll
 
-    def run(args, DMAX, DLOG, maxiter=None):
+
+@pytest.fixture(scope="module")
+def host_machine(tmp_path_factory):
+    """csrc/ladder_host.cpp built with g++; its entry takes ladder_cuda's
+    arguments and the threads of its block (one by default)."""
+    fn = build_host_library(tmp_path_factory.mktemp("ladder_host")) \
+        .aletsch_ladder_host
+
+    def run(args, DMAX, DLOG, maxiter=None, nt=1):
         outs, c_args = LK.kernel_args(args, DMAX, DLOG, maxiter)
-        assert fn(*c_args) == 0
+        assert fn(*c_args, nt) == 0
         return outs
     return run
 
