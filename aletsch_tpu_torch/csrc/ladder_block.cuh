@@ -6,15 +6,17 @@
 // Two forms.  On the card (nvcc) a block is THREADS threads, a multiple of
 // 32: warp shuffles and reductions inside a warp, one slot a warp in shared
 // memory across warps, __syncthreads and its OR/AND forms.  On the host
-// (ladder_host.cpp) a block is nt std::threads: one slot a thread in
-// shared memory under a std::barrier (C++20), and std::atomic_ref for the
-// atomics, so the CPU tests run the machine's parallel passes with real
-// concurrency (tests/test_torch_ladder_threads.py holds each primitive to
-// its serial form).
+// (ladder_host.cpp) a block is a team of nt std::threads (team.cuh: one
+// slot a thread in shared memory under a std::barrier, C++20), with
+// std::atomic_ref for the atomics, so the CPU tests run the machine's
+// parallel passes with real concurrency (tests/test_torch_ladder_threads.py
+// holds each primitive to its serial form).
 
 #pragma once
 
 #include <stdint.h>
+
+#include "team.cuh"
 
 #ifdef __CUDACC__
 #define LADDER_HD __host__ __device__ inline
@@ -22,7 +24,6 @@
 #define LADDER_CLOCK() ((unsigned long long)clock64())
 #else
 #include <atomic>
-#include <barrier>
 #define LADDER_HD inline
 #define LADDER_FN inline
 #define LADDER_CLOCK() 0ull
@@ -89,14 +90,8 @@ LADDER_FN int warp_incl(int x) {
 
 #else
 
-struct Blk {
-    int tid, nt;
-    int* slots;     // 2 * nt ints of the block's shared memory
-    int par;
-    std::barrier<>* bar;
-
-    void sync() const { bar->arrive_and_wait(); }
-};
+// a team of nt host threads (team.cuh), its slots 2 * nt ints
+using Blk = team::Team;
 
 inline int atomic_add(int* p, int v) {
     return std::atomic_ref<int>(*p).fetch_add(v, std::memory_order_relaxed);
@@ -113,22 +108,11 @@ inline void atomic_max(T* p, T v) {
     }
 }
 
-inline int* next_slots(Blk& b) {
-    int* sl = b.slots + b.par * b.nt;
-    b.par ^= 1;
-    return sl;
-}
+using team::next_slots;
 
-// each thread's x in its slot; after the barrier every thread folds them
 template <class F>
 inline int blk_fold(Blk& b, int x, F f) {
-    int* sl = next_slots(b);
-    sl[b.tid] = x;
-    b.sync();
-    int r = sl[0];
-    for (int i = 1; i < b.nt; ++i)
-        r = f(r, sl[i]);
-    return r;
+    return team::fold(b, x, f);
 }
 
 inline int blk_min(Blk& b, int x) {

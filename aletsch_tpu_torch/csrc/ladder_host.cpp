@@ -1,7 +1,8 @@
 // The ladder kernel's per-graph machine (ladder_machine.cuh) built by a host
 // compiler: a block of nt std::threads runs each graph, graph after graph,
-// with the host form of the block primitives (ladder_block.cuh: a
-// std::barrier for __syncthreads, std::atomic_ref for the atomics).  The
+// with the host form of the block primitives (ladder_block.cuh over
+// team.cuh: a std::barrier for __syncthreads, std::atomic_ref for the
+// atomics).  The
 // CPU tests hold it against the plain PyTorch form at one thread and at
 // several (tests/test_torch_ladder_kernel.py, test_torch_ladder_threads.py),
 // so the transcription that ladder.cu runs on the card, and the split of
@@ -13,34 +14,9 @@
 #include <stdint.h>
 #include <stdlib.h>
 
-#include <barrier>
-#include <thread>
-#include <vector>
-
 #include "ladder_machine.cuh"
 
 using namespace ladder;
-
-namespace {
-
-// Run fn(Blk&) on a block of nt threads sharing `slots` (2 * nt ints).
-template <class F>
-void on_block(int nt, F fn) {
-    std::barrier<> bar(nt);
-    std::vector<int> slots(2 * (size_t)nt);
-    auto body = [&](int tid) {
-        Blk b{tid, nt, slots.data(), 0, &bar};
-        fn(b);
-    };
-    std::vector<std::thread> th;
-    for (int t = 1; t < nt; ++t)
-        th.emplace_back(body, t);
-    body(0);
-    for (auto& t : th)
-        t.join();
-}
-
-}  // namespace
 
 // aletsch_ladder_f64's arguments but the stream, and nt, the threads of
 // the block (1 or more).  Returns 0, or 1 for a shape the kernel does not
@@ -73,7 +49,7 @@ extern "C" int aletsch_ladder_host(
     const Out out{larm, ltgt, ndec, status, ewrt_out, ealive_out,
                   esrc_out, edst_out, estr_out, nedges_out, hedge_out,
                   hlen_out, nz_out, events};
-    on_block(nt, [&](Blk& b) {
+    team::run_team(nt, [&](Blk& b) {
         for (int gb = 0; gb < B; ++gb) {
             load_graph(m, g, s, in, gb, b);
             run_graph<false>(m, g, s, x, maxiter, b, nullptr);
@@ -96,7 +72,7 @@ extern "C" int aletsch_ladder_block_host(int kind, int nt, const int* in,
                                          int n, int* out) {
     if (kind < 0 || kind > 4 || nt < 1)
         return 1;
-    on_block(nt, [&](Blk& b) {
+    team::run_team(nt, [&](Blk& b) {
         if (kind == 4) {
             blk_scan(b, in, out, n);
             return;
@@ -163,7 +139,7 @@ extern "C" int aletsch_ladder_occ_host(int nt, int H, int L, int E, int op,
         m.emark[i] = op == 2 && emask[i] ? 0 : -1;
         m.occ_cnt[i] = 0;
     }
-    on_block(nt, [&](Blk& b) {
+    team::run_team(nt, [&](Blk& b) {
         apply_pair(m, g, s, b);
         apply_entries(m, g, s, b, 0);
         b.sync();

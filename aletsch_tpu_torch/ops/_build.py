@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("drain.cu", "bottleneck.cu", "ladder.cu", "bridge.cu")
 # headers the sources include: in the hash, not compiled alone
-HEADERS = ("ladder_machine.cuh", "ladder_block.cuh", "bridge_machine.cuh")
+HEADERS = ("ladder_machine.cuh", "ladder_block.cuh", "bridge_machine.cuh",
+           "team.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "aletsch_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -41,9 +42,10 @@ SOURCE_FLAGS = {"ladder.cu": ("-fmad=false",)}
 LADDER_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p] * 15)
 # aletsch_bridge_topk's arguments but the stream: P, Wt, Lv, tgt, then n,
-# V, E, T, then ostk, par, pix (bridge_host.cpp's aletsch_bridge_host takes
-# the same)
-BRIDGE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+# V, E, T, the inputs' row strides, then ostk, par, pix
+# (aletsch_bridge_topk_prof takes the profile's pointer next, and
+# bridge_host.cpp's aletsch_bridge_host the same, then its lanes)
+BRIDGE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
     + [ctypes.c_void_p] * 3
 
 _LIB = None
@@ -140,5 +142,7 @@ def load_library():
         lib.aletsch_ladder_f64_prof.restype = ctypes.c_int
         lib.aletsch_bridge_topk.argtypes = BRIDGE_ARGTYPES + [p]
         lib.aletsch_bridge_topk.restype = ctypes.c_int
+        lib.aletsch_bridge_topk_prof.argtypes = BRIDGE_ARGTYPES + [p, p]
+        lib.aletsch_bridge_topk_prof.restype = ctypes.c_int
         _LIB = lib
     return _LIB

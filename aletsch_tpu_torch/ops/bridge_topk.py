@@ -40,7 +40,7 @@ is cheaper than shipping every path).
 
 bridge_dp runs the DP on its inputs' device: bridge_plain, a Python loop
 of V - 1 steps of small tensor operations, for CPU tensors; bridge_cuda,
-one launch of the hand-written kernel csrc/bridge.cu (one block an
+one launch of the hand-written kernel csrc/bridge.cu (one warp an
 instance, its tables in shared memory), for CUDA tensors, which raises
 rather than fall back.
 """
@@ -163,21 +163,25 @@ def bridge_plain(P, Wt, Lv, tgt):
     return ostk, par, pix
 
 
-# the kernel's inputs, all int32: (name, shape letters)
+# the kernel's inputs and outputs, all int32: (name, shape letters)
 _IN_SPEC = (("P", "nVE"), ("Wt", "nVE"), ("Lv", "nV"), ("tgt", "nT"))
+_OUT_SPEC = (("ostk", "nTKS"), ("par", "nVK"), ("pix", "nVK"))
 
 
-def kernel_args(P, Wt, Lv, tgt):
+def kernel_args(P, Wt, Lv, tgt, outs=None):
     """Check bridge_plain's inputs for the kernel and allocate its outputs.
-    Returns (the outputs ostk, par, pix; the C function's arguments but the
-    stream: pointers and the shape).  Raises on a wrong type, shape, device
-    or layout."""
+    Each input's instance rows may lie at any stride, each row contiguous
+    (the solver's views into its packed staging buffer).  `outs`: the
+    outputs (ostk, par, pix) to write instead, dense.  Returns (the
+    outputs; the C function's arguments but the stream: pointers, the
+    shape, the inputs' row strides, the output pointers).  Raises on a
+    wrong type, shape, device or layout."""
     args = (P, Wt, Lv, tgt)
     if P.dim() != 3 or tgt.dim() != 2:
         raise ValueError("P must be [n, V, E] and tgt [n, T], got %s and %s"
                          % (tuple(P.shape), tuple(tgt.shape)))
     n, V, E = P.shape
-    dims = dict(n=n, V=V, E=E, T=tgt.shape[1])
+    dims = dict(n=n, V=V, E=E, T=tgt.shape[1], K=K, S=S)
     for (name, letters), t in zip(_IN_SPEC, args):
         shape = tuple(dims[c] for c in letters)
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
@@ -186,40 +190,85 @@ def kernel_args(P, Wt, Lv, tgt):
         if t.device != P.device:
             raise ValueError("%s is on %s, P on %s" % (name, t.device,
                                                        P.device))
-        if not t.is_contiguous():
-            raise ValueError("%s must be contiguous" % name)
+        if not t[:1].is_contiguous():
+            raise ValueError("%s must be contiguous in each instance's row"
+                             % name)
     if V < 1 or E < 1:
         raise ValueError("V and E must be >= 1, got %d, %d" % (V, E))
-    T = dims["T"]
-    outs = tuple(torch.empty(shape, dtype=torch.int32, device=P.device)
-                 for shape in ((n, T, K, S), (n, V, K), (n, V, K)))
-    c_args = ([t.data_ptr() for t in args] + [n, V, E, T]
-              + [t.data_ptr() for t in outs])
+    if outs is None:
+        outs = tuple(torch.empty(tuple(dims[c] for c in letters),
+                                 dtype=torch.int32, device=P.device)
+                     for _, letters in _OUT_SPEC)
+    for (name, letters), t in zip(_OUT_SPEC, outs):
+        shape = tuple(dims[c] for c in letters)
+        if t.dtype != torch.int32 or tuple(t.shape) != shape \
+                or t.device != P.device or not t.is_contiguous():
+            raise ValueError("output %s must be a contiguous torch.int32 %s "
+                             "on %s" % (name, shape, P.device))
+    c_args = ([t.data_ptr() for t in args] + [n, V, E, dims["T"]]
+              + [t.stride(0) for t in args] + [t.data_ptr() for t in outs])
     return outs, c_args
+
+
+def launch(c_args, dev, prof=None, stream=None):
+    """One launch of the hand-written kernel (csrc/bridge.cu) with
+    kernel_args' arguments on `stream` (a torch.cuda.Stream of card `dev`;
+    by default its current stream); n = 0 launches nothing and counts
+    nothing.  With `prof`, a zeroed int64 tensor on the card, the profiling
+    instance, which adds each pass's cycles and the step counts to it and
+    is not counted in bridge_cuda.launches.  No synchronisation."""
+    if c_args[4] <= 0:
+        return
+    from ._build import load_library
+    lib = load_library()
+    with torch.cuda.device(dev):
+        if stream is None:
+            stream = torch.cuda.current_stream(dev)
+        if prof is None:
+            err = lib.aletsch_bridge_topk(*c_args, stream.cuda_stream)
+        else:
+            err = lib.aletsch_bridge_topk_prof(*c_args, prof.data_ptr(),
+                                               stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError("bridge kernel launch failed: cudaError %d" % err)
+    if prof is None:
+        bridge_cuda.launches += 1
 
 
 def bridge_cuda(P, Wt, Lv, tgt):
     """bridge_plain's function as one launch of the hand-written kernel
-    (csrc/bridge.cu) on the current stream of the inputs' card, one block
-    an instance.  CUDA tensors of bridge_plain's types only, contiguous."""
+    (csrc/bridge.cu) on the current stream of the inputs' card, one warp
+    an instance.  CUDA tensors of bridge_plain's types only, each
+    instance's row contiguous."""
     dev = P.device
     if dev.type != "cuda":
         raise ValueError("bridge_cuda takes CUDA tensors, got %s" % dev)
     outs, c_args = kernel_args(P, Wt, Lv, tgt)
-    if P.shape[0] > 0:
-        from ._build import load_library
-        lib = load_library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.aletsch_bridge_topk(*c_args, stream)
-        if err != 0:
-            raise RuntimeError("bridge kernel launch failed: cudaError %d"
-                               % err)
-        bridge_cuda.launches += 1
+    launch(c_args, dev)
     return outs
 
 
 bridge_cuda.launches = 0    # kernel launches since the last reset
+
+# the profiling instance's passes and counts, in csrc/bridge_machine.cuh's
+# order (PROF_*)
+PROF_PASSES = ("load", "build", "select", "write", "empty", "out")
+PROF_COUNTS = ("steps", "empty_steps", "tail_steps", "candidates")
+
+
+def bridge_profile(P, Wt, Lv, tgt):
+    """One launch of the kernel's profiling instance (never on the main
+    path; not counted in bridge_cuda.launches): bridge_cuda's outputs, the
+    clock64() cycles of each pass summed over the instances
+    ({PROF_PASSES name: cycles}) and the counts ({PROF_COUNTS name: n})."""
+    outs, c_args = kernel_args(P, Wt, Lv, tgt)
+    prof = torch.zeros(len(PROF_PASSES) + len(PROF_COUNTS),
+                       dtype=torch.int64, device=P.device)
+    launch(c_args, P.device, prof)
+    p = prof.cpu().numpy()
+    n = len(PROF_PASSES)
+    return (outs, dict(zip(PROF_PASSES, p[:n].tolist())),
+            dict(zip(PROF_COUNTS, p[n:].tolist())))
 
 
 def bridge_dp(P, Wt, Lv, tgt):
@@ -238,12 +287,47 @@ def batch_from_numpy(P, Wt, Lv, tgt, device):
                  .to(dev) for a in (P, Wt, Lv, tgt))
 
 
+# the byte alignment of every field in a staged row
+ALIGN = 16
+
+
+def packed_layout(V, E, T):
+    """The staged row's fields in the C ABI's order, as (name, shape of an
+    instance's part, byte offset in the row, fill), all int32, and the
+    row's bytes (a multiple of ALIGN)."""
+    out, off = [], 0
+    for name, shape, fill in (("P", (V, E), -1), ("Wt", (V, E), 0),
+                              ("Lv", (V,), 0), ("tgt", (T,), -1)):
+        out.append((name, shape, off, fill))
+        off += -(-int(np.prod(shape)) * 4 // ALIGN) * ALIGN
+    return tuple(out), off
+
+
+def input_views(packed, layout):
+    """bridge_plain's four inputs as int32 views of packed rows ([rows, row
+    bytes] uint8, on any device): no copy."""
+    words = packed.view(torch.int32)
+    return tuple(words[:, off // 4:off // 4 + int(np.prod(shape))]
+                 .unflatten(1, shape) if len(shape) > 1
+                 else words[:, off // 4:off // 4 + shape[0]]
+                 for _, shape, off, _ in layout)
+
+
 class DeviceBridge:
     """Pinned-shape batch solver for production wave bridging
     (meta/device_wave.py): one dispatch computes the top-K stack DP for up
     to `batch` pier-DP instances paused across a region wave's groups.  It
-    ships the live rows only, and runs bridge_dp once on each device of
-    the mesh: on a card one kernel launch."""
+    ships the live rows only, and runs the DP once on each device of the
+    mesh.
+
+    The staging rows live in one pinned buffer, an instance a row
+    (packed_layout: P, Wt, Lv and tgt at 16-byte aligned offsets of the
+    row), so on a card a dispatch is one copy of its rows in, into a buffer
+    that stays on the card, one launch of the kernel over strided views of
+    it, and one copy of the three outputs, which the kernel writes into one
+    device buffer, into pinned memory, behind one sync.  The views and the
+    kernel's checked arguments are made once for each number of rows a
+    dispatch ships."""
 
     def __init__(self, batch=DEFAULT_B, maxv=DEFAULT_V, maxe=DEFAULT_E,
                  maxt=DEFAULT_T, device=None):
@@ -253,17 +337,37 @@ class DeviceBridge:
         self.maxt = maxt
         self.device = port_device() if device is None else torch.device(device)
         pin = self.device.type == "cuda"
-        i32 = torch.int32
-        self._stage = (
-            torch.full((batch, maxv, maxe), -1, dtype=i32, pin_memory=pin),
-            torch.zeros((batch, maxv, maxe), dtype=i32, pin_memory=pin),
-            torch.zeros((batch, maxv), dtype=i32, pin_memory=pin),
-            torch.full((batch, maxt), -1, dtype=i32, pin_memory=pin))
-        self.P, self.Wt, self.Lv, self.tgt = (t.numpy() for t in self._stage)
-        # bridge_device_time: host clock of solve() (copies, DP, sync), s;
+        self.layout, self.row_bytes = packed_layout(maxv, maxe, maxt)
+        # the staging rows; the native export writes them through the
+        # numpy views below
+        self._packed = torch.zeros((batch, self.row_bytes), dtype=torch.uint8,
+                                   pin_memory=pin)
+        buf = self._packed.numpy()
+        for name, shape, off, fill in self.layout:
+            inner = tuple(int(np.prod(shape[k + 1:])) * 4
+                          for k in range(len(shape)))
+            view = np.ndarray((batch,) + shape, np.int32, buffer=buf,
+                              offset=off, strides=(self.row_bytes,) + inner)
+            view[...] = fill
+            setattr(self, name, view)
+        # the outputs' host copy: ostk [rows, T, K, S], par, pix [rows, V,
+        # K], one after the other
+        self._out_row = maxt * K * S + 2 * maxv * K
+        self._out = torch.empty(batch * self._out_row, dtype=torch.int32,
+                                pin_memory=pin)
+        # on each card: (its input and output buffers, CUDA events), and by
+        # (card, rows) the launch's plan (_plan)
+        self._cards = {}
+        self._plans = {}
+        # bridge_device_time: host clock of solve() (the copies, the DP,
+        # the sync), s; bridge_kernel_time: launch to completion, s: CUDA
+        # events on the stream around each launch, read at the dispatch's
+        # sync (the kernel's device time and any wait of the card, after
+        # the copy in, for the launch to be queued);
         # bridge_launches: kernel launches of its dispatches
         self.stats = {"bridge_dispatches": 0, "bridge_instances": 0,
-                      "bridge_device_time": 0.0, "bridge_launches": 0}
+                      "bridge_device_time": 0.0, "bridge_kernel_time": 0.0,
+                      "bridge_launches": 0}
 
     def row(self, i):
         """Writable (P, Wt, Lv, tgt) slices for the native export."""
@@ -271,13 +375,13 @@ class DeviceBridge:
 
     def solve(self, nrows):
         """(ostk [n,T,K,S], par [n,V,K], pix [n,V,K]) int32, C-contiguous
-        host arrays, for the first nrows batch slots."""
+        host arrays of their own, for the first nrows batch slots."""
         t0 = time.perf_counter()
         n0 = bridge_cuda.launches
         # several devices: the rows split over them (ops/meshing.py)
-        shards, split = shard_args([t[:nrows] for t in self._stage],
-                                   self.stats, self.device)
-        parts = [self._dp(dev, args) for dev, args in shards]
+        shards, split = shard_args([self._packed[:nrows]], self.stats,
+                                   self.device)
+        parts = [self._dp(dev, staged[0]) for dev, staged in shards]
         ostk, par, pix = join_rows(parts, split)
         account_out((ostk, par, pix), self.stats, self.device)
         self.stats["bridge_device_time"] += time.perf_counter() - t0
@@ -286,11 +390,60 @@ class DeviceBridge:
         self.stats["bridge_launches"] += bridge_cuda.launches - n0
         return ostk, par, pix
 
-    @staticmethod
-    def _dp(dev, args):
-        """The DP on `dev` over staged rows; C-contiguous host outputs."""
-        out = bridge_dp(*(a.to(dev, non_blocking=True) for a in args))
-        return tuple(t.contiguous().cpu().numpy() for t in out)
+    def _split_out(self, flat, rows):
+        """ostk, par, pix of `rows` rows laid one after the other in a
+        flat int32 tensor (the kernel's outputs), as views."""
+        T, V = self.maxt, self.maxv
+        a = rows * T * K * S
+        b = a + rows * V * K
+        return (flat[:a].view(rows, T, K, S), flat[a:b].view(rows, V, K),
+                flat[b:b + rows * V * K].view(rows, V, K))
+
+    def _plan(self, dev, rows):
+        """(input rows, output buffer, the launch's C arguments) of a
+        dispatch of `rows` rows on card `dev`, made on its first use."""
+        plan = self._plans.get((dev, rows))
+        if plan is None:
+            if dev not in self._cards:
+                self._cards[dev] = (
+                    torch.empty((self.batch, self.row_bytes),
+                                dtype=torch.uint8, device=dev),
+                    torch.empty(self._out.shape, dtype=torch.int32,
+                                device=dev),
+                    tuple(torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)))
+            dpacked, dout, _ = self._cards[dev]
+            buf = dout[:rows * self._out_row]
+            _, c_args = kernel_args(
+                *input_views(dpacked[:rows], self.layout),
+                outs=self._split_out(buf, rows))
+            plan = self._plans[dev, rows] = (dpacked[:rows], buf, c_args)
+        return plan
+
+    def _dp(self, dev, packed):
+        """The DP on `dev` over packed staged rows: one copy in, one kernel
+        launch and one copy out on a card, the plain form on the CPU;
+        C-contiguous host arrays of their own."""
+        rows = packed.shape[0]
+        if dev.type != "cuda":
+            out = bridge_plain(*input_views(packed, self.layout))
+            return tuple(t.numpy() for t in out)
+        dpacked, buf, c_args = self._plan(dev, rows)
+        start, end = self._cards[dev][2]
+        host = self._out[:buf.numel()]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
+            dpacked.copy_(packed, non_blocking=True)
+            start.record()
+            launch(c_args, dev, stream=stream)
+            end.record()
+            host.copy_(buf, non_blocking=True)
+            stream.synchronize()
+        self.stats["bridge_kernel_time"] += start.elapsed_time(end) / 1e3
+        # one copy out of the pinned buffer, which the next dispatch
+        # overwrites; the three outputs are views of it
+        return tuple(t.numpy() for t in self._split_out(
+            torch.from_numpy(host.numpy().copy()), rows))
 
 
 def fuzz_batch(rng, n, V=DEFAULT_V, E=DEFAULT_E, T=DEFAULT_T, ties=False):

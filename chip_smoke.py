@@ -37,10 +37,14 @@ Phases, each of which exits non-zero on failure:
    CPU's against the numpy oracle, every output element for element at
    1, 3, 37 and 64 rows, on random DAG windows and a tie-heavy batch at
    the production shape and a tie-heavy batch at the CPU tests' shape;
-   what ptxas reported for it; its device time, the wrapper call's time,
-   the plain form's time on the card and its bound at each row count;
-   then its solver (DeviceBridge.solve: one launch a dispatch, the live
-   rows only) against the oracle; the support reduce
+   what ptxas reported for it; its profiling instance (bridge_profile)
+   at 64 rows of the random and the tie-heavy production-shape batches,
+   equal to the kernel, with each pass's cycles; its device time, the
+   wrapper call's time, the plain form's time on the card (at 1 and 37
+   rows) and its bound at each row count; then its solver
+   (DeviceBridge.solve: one copy in, one launch, one copy out a dispatch,
+   the live rows only) against the oracle, with 3 device operations a
+   dispatch under the profiler; the support reduce
    (plain PyTorch) against its numpy oracle; the resolution ladder's
    hand-written kernel (csrc/ladder.cu, ladder_cuda) against its plain
    form (ladder_plain) on the card and on the host CPU, every output and
@@ -56,7 +60,11 @@ Phases, each of which exits non-zero on failure:
    and bound on the fixtures; its profiling instance (ladder_profile) at 3 and 64 rows of
    both, equal to the kernel in every output, with each pass's cycles an
    event, overall and by arm; then the solver (DeviceLadder.solve: one
-   copy in, one launch, one copy out a dispatch) against the kernel.  For
+   copy in, one launch, one copy out a dispatch) against the kernel.  Both
+   solvers over the mesh emulated as two and as three cuda:0 devices
+   (ops/meshing.py's split and replicated branches) at 1, 3, 37 and 64
+   rows, bit for bit against one device, a launch a shard, the mesh's
+   bytes accounted (_mesh_same).  For
    each solver: the host clock of a dispatch, and over one dispatch under
    the profiler its device time and number of device kernels and copies;
 2d. the device forms this port runs as plain PyTorch beside those, on the
@@ -103,7 +111,13 @@ Phases, each of which exits non-zero on failure:
    reference's, every stage engaged, ladder_agree == ladder_total and
    fused_agree == fused_total, the drain kernel launched on this path
    too, and the ladder and bridge kernels launched once a dispatch of
-   their solvers.  The
+   their solvers, with their summed CUDA-event times (launch to
+   completion: the card's wait for each launch is in them).  In the
+   verify run the bridge's dispatches are watched (_BridgeRows):
+   histograms of its instances' live lengths and valid candidates a step
+   (the watcher's own seconds logged), and the staged rows of its first
+   64 dispatches, on which the kernel is then held to the plain form,
+   timed back to back (its device time), and profiled.  The
    ladder's solve() clock is projected from phase 2c's dispatch first;
    then the 200-gene cohort of phases 3d to 3h is built and its reference
    bytes made;
@@ -216,7 +230,8 @@ DEVICE_ARGS = ["--device_greedy", "on", "--device_min_vertices", "2",
 # phase 3d: the CLI's defaults, every device stage on 'auto'; verbose 1
 # prints the device stats line the phase reads
 DEFAULT_ARGS = ["--max_num_exons", "8", "--verbose", "1"]
-BRIDGE_SUPPORT_ARGS = ["--device_bridge", "on", "--device_support", "on"]
+BRIDGE_ARGS = ["--device_bridge", "on"]
+BRIDGE_SUPPORT_ARGS = BRIDGE_ARGS + ["--device_support", "on"]
 LADDER_ARGS = ["--device_ladder", "on"]
 # Phase 3c's projection of the ladder's solve() clock on a cohort: its
 # dispatches a gene (731 on the 200-gene cohort with the flags above, a
@@ -972,6 +987,13 @@ def ladder_vs_plain(dev):
             "the kernel %d times" % (LK.ladder_cuda.launches - n0))
     solve = _form_times("ladder solve(), one kernel launch,", ldev.solve,
                         (1, 3, 55, 64), 5)
+
+    def staged():
+        solver = DeviceLadder(device=dev)
+        solver.stage_states(fuzz, 64)
+        return solver
+    _mesh_same("ladder solve()", staged, (1, 3, 37, 64),
+               lambda: LK.ladder_cuda.launches, LK.OUT_NAMES[:4])
     return err, times, solve
 
 
@@ -996,13 +1018,112 @@ def _bridge_bound(args, outs):
     return _bound(_nbytes(*args, *outs), ops, F32_OPS_PER_S)
 
 
+def _bridge_split(BT, tag, on_card):
+    """The profiling instance (bridge_profile: lane 0 reads clock64() at
+    the warp's sync points) over every row of one batch on the card: its
+    outputs must equal the kernel's; logs each pass's cycles, a step with
+    candidates (build, select, write), a step without (empty), an instance
+    (load, out), and each pass's share.  Returns (cycles by pass,
+    counts)."""
+    names = ("ostk", "par", "pix")
+    n = on_card[0].shape[0]
+    outs, cyc, cnt = BT.bridge_profile(*on_card)
+    _outputs_same("%s bridge, %d rows: the profiling instance against the "
+                  "kernel" % (tag, n), names, [t.cpu().numpy() for t in outs],
+                  [t.cpu().numpy() for t in BT.bridge_cuda(*on_card)])
+    require(all(c >= 0 for c in cyc.values()), "negative cycle counts")
+    total = sum(cyc.values())
+    full = max(cnt["steps"] - cnt["empty_steps"], 1)
+    per = {"load": n, "out": n, "empty": max(cnt["empty_steps"], 1)}
+    log("bridge pass split, %s, %d rows (%d steps run, %d of them with no "
+        "valid candidate, %d past the instances' ends not run; %.1f valid "
+        "candidates a step with any): cycles %s; all passes %.0f an "
+        "instance"
+        % (tag, n, cnt["steps"], cnt["empty_steps"], cnt["tail_steps"],
+           cnt["candidates"] / full,
+           ", ".join("%s %.0f a %s (%.1f %%)"
+                     % (p, c / per.get(p, full),
+                        "instance" if p in ("load", "out") else "step",
+                        100.0 * c / max(total, 1))
+                     for p, c in cyc.items()), total / n))
+    return cyc, cnt
+
+
+def _mesh_same(tag, make, rows, launches, solve_names):
+    """A solver (make(): staged, on the card) over the mesh emulated as two
+    and as three cuda:0 devices (ops/meshing.py's split and replicated
+    branches) at each row count == the same solver on one device, bit for
+    bit: one kernel launch a shard, the mesh's bytes accounted."""
+    import torch
+
+    from aletsch_tpu_torch.ops import meshing
+    one = make()
+    want = {r: one.solve(r) for r in rows}
+    local = meshing._local_devices
+    try:
+        for n in (2, 3):
+            meshing._local_devices = \
+                lambda d, n=n: [torch.device("cuda", 0)] * n
+            solver = make()
+            for r, w in want.items():
+                n0 = launches()
+                got = solver.solve(r)
+                require(launches() == n0 + n, "%s over %d devices, %d rows: "
+                        "%d launches" % (tag, n, r, launches() - n0))
+                _outputs_same("%s over %d devices, %d rows, against one "
+                              "device" % (tag, n, r), solve_names, got, w)
+            st = solver.stats
+            require(st.get("mesh_devices") == n
+                    and st.get("mesh_dispatches") == len(rows)
+                    and st.get("mesh_bytes_in", 0) > 0
+                    and st.get("mesh_bytes_out") == sum(
+                        a.nbytes for w in want.values() for a in w),
+                    "%s over %d devices: the mesh's stats %s"
+                    % (tag, n, {k: v for k, v in st.items()
+                                if k.startswith("mesh")}))
+    finally:
+        meshing._local_devices = local
+    log("%s over the mesh emulated as 2 and 3 cuda:0 devices == one device "
+        "bit for bit at %s rows, one launch a shard, mesh bytes accounted"
+        % (tag, " / ".join(str(r) for r in rows)))
+
+
+def _wrap_batch(BT, rng):
+    """64 small-shape instances whose lengths near 2^31 make the length sum
+    wrap (rows 0-31) and whose weights negate past, onto or around BIG
+    (rows 32-63): valid key tuples at or past the absent candidates'."""
+    import numpy as np
+    P, Wt, Lv, tgt = BT.fuzz_batch(rng, 64, 16, 4, 4)
+    Lv[:32] = rng.integers(2**30, 2**31 - 1, size=Lv[:32].shape)
+    live = P[32:] >= 0
+    Wt[32:] = np.where(live, rng.choice(
+        np.array([-2**31, -2**30 - 1, -2**30, -5, 0, 7], np.int32),
+        size=Wt[32:].shape), 0)
+    return P, Wt, Lv, tgt
+
+
+def _odd_rows(t):
+    """t's rows as a view into a copy whose rows lie one int further apart
+    than their data, on t's device."""
+    import torch
+    n = t.shape[0]
+    flat = t.reshape(n, -1)
+    wide = torch.zeros((n, flat.shape[1] + 1), dtype=t.dtype,
+                       device=t.device)
+    wide[:, :-1] = flat
+    return wide[:, :-1].unflatten(1, t.shape[1:]) if t.dim() > 2 \
+        else wide[:, :-1]
+
+
 def bridge_vs_plain(dev):
     """Phase 2c, the bridge top-K: csrc/bridge.cu (bridge_cuda) against its
     plain form on the card and on the host CPU, and the host CPU's against
     the numpy oracle, at 1, 3, 37 and 64 rows, on a random and a tie-heavy
-    batch at the production shape and a tie-heavy one at the CPU tests'
-    shape; then its times and bound on the random batch, and the solver's
-    dispatch.  Returns (the largest absolute difference of kernel and plain
+    batch at the production shape, a tie-heavy one at the CPU tests' shape
+    (passed in rows one int wider than their data), one with 40 in-edge
+    slots and one whose lengths and keys wrap int32 (not asked of the
+    oracle); then its times and bound on the random batch, and the
+    solver's dispatch.  Returns (the largest absolute difference of kernel and plain
     form, {nrows: times} of the kernel, {nrows: times} of
     DeviceBridge.solve)."""
     import numpy as np
@@ -1013,15 +1134,22 @@ def bridge_vs_plain(dev):
     batches = {"random": BT.fuzz_batch(rng, 64),
                "tie-heavy": BT.fuzz_batch(rng, 64, ties=True),
                "small-shape tie-heavy": BT.fuzz_batch(rng, 64, 16, 4, 4,
-                                                      ties=True)}
+                                                      ties=True),
+               # more in-edge slots than a warp has lanes
+               "in-degree 40": BT.fuzz_batch(rng, 64, 16, 40, 4),
+               "int32-wrap": _wrap_batch(BT, rng)}
     err = 0.0
     for tag, batch in batches.items():
         host = [t.numpy() for t in BT.bridge_plain(
             *BT.batch_from_numpy(*batch, "cpu"))]
-        _outputs_same("%s bridge: the plain form on the host CPU against "
-                      "the numpy oracle" % tag, names, host,
-                      BT.bridge_dp_host(*batch))
+        if tag != "int32-wrap":     # the oracle's Python ints do not wrap
+            _outputs_same("%s bridge: the plain form on the host CPU "
+                          "against the numpy oracle" % tag, names, host,
+                          BT.bridge_dp_host(*batch))
         on_card = BT.batch_from_numpy(*batch, dev)
+        if tag == "small-shape tie-heavy":
+            # rows one int wider than their data: the unaligned copies
+            on_card = [_odd_rows(t) for t in on_card]
         for r in rows:
             sub = [a[:r] for a in on_card]
             kern = [t.cpu().numpy() for t in BT.bridge_cuda(*sub)]
@@ -1046,6 +1174,9 @@ def bridge_vs_plain(dev):
         "element (max |diff| %g), at %s rows, on %s batches"
         % (err, " / ".join(str(r) for r in rows), ", ".join(batches)))
     log("ptxas bridge_kernel: %s" % "; ".join(_ptxas_lines("bridge_kernel")))
+    for tag in ("random", "tie-heavy"):
+        _bridge_split(BT, tag + " production-shape",
+                      BT.batch_from_numpy(*batches[tag], dev))
 
     on_card = BT.batch_from_numpy(*batches["random"], dev)
     times = {}
@@ -1056,32 +1187,48 @@ def bridge_vs_plain(dev):
              "profiler": _profiled_ms(lambda: BT.bridge_cuda(*a),
                                       "bridge_kernel"),
              "call": _call_ms(lambda: BT.bridge_cuda(*a)),
+             # the plain form at 1 and 37 rows only (the script's time)
              "plain": _host_ms(lambda: [t.cpu() for t in BT.bridge_plain(
-                 *a)], 3)}
+                 *a)], 3) if n in (1, 37) else None}
         t["bound"], t["bound_by"], t["bytes"] = _bridge_bound(a, outs)
         times[n] = t
         log("bridge kernel nrows=%d (random batch): device %.4f ms (events, "
             "launch cost outside), profiler %s ms; wrapper call %.4f ms; "
-            "plain form's call on the card %.2f ms (host clock, median of "
-            "3); bound %.7f ms (%s; %d bytes), share of it reached %.4f %%"
+            "plain form's call on the card %s (host clock, median of 3); "
+            "bound %.7f ms (%s; %d bytes), share of it reached %.4f %%"
             % (n, t["device"],
                "%.4f" % t["profiler"] if t["profiler"] else "not measured",
-               t["call"], t["plain"], t["bound"], t["bound_by"], t["bytes"],
+               t["call"], "%.2f ms" % t["plain"] if t["plain"] is not None
+               else "not timed", t["bound"], t["bound_by"], t["bytes"],
                100.0 * t["bound"] / t["device"]))
-    # the solver: the live rows only, one launch, the host rows back
-    bdev = BT.DeviceBridge(device=dev)
-    for stage, a in zip((bdev.P, bdev.Wt, bdev.Lv, bdev.tgt),
-                        batches["tie-heavy"]):
-        stage[...] = a
+    # the solver: the live rows only, one copy in, one launch, one copy
+    # out, one sync
+    def staged():
+        bdev = BT.DeviceBridge(device=dev)
+        for stage, a in zip((bdev.P, bdev.Wt, bdev.Lv, bdev.tgt),
+                            batches["tie-heavy"]):
+            stage[...] = a
+        return bdev
+    bdev = staged()
     want = BT.bridge_dp_host(*(a[:5] for a in batches["tie-heavy"]))
     n0 = BT.bridge_cuda.launches
-    _outputs_same("bridge solve(5) against the numpy oracle", names,
-                  bdev.solve(5), want)
+    got = bdev.solve(5)
+    _outputs_same("bridge solve(5) against the numpy oracle", names, got,
+                  want)
     require(BT.bridge_cuda.launches == n0 + 1
             and bdev.stats["bridge_launches"] == 1, "a bridge dispatch "
             "launched the kernel %d times" % (BT.bridge_cuda.launches - n0))
+    require(all(g.flags["C_CONTIGUOUS"] and not np.shares_memory(
+        g, bdev._out.numpy()) for g in got), "bridge solve(): results are "
+        "views of the pinned buffer")
     solve = _form_times("bridge solve(), one kernel launch,", bdev.solve,
                         rows, 5)
+    for n, t in solve.items():
+        require(t["kernels"] in (0, 3), "bridge solve(%d): %d device "
+                "operations a dispatch, not the copy in, the kernel and the "
+                "copy out" % (n, t["kernels"]))
+    _mesh_same("bridge solve()", staged, rows,
+               lambda: BT.bridge_cuda.launches, names)
     return err, times, solve
 
 
@@ -1585,7 +1732,9 @@ def _check_new_path(tag, st, n, stages, trust):
             require(st.get(k, 0) > 0, "%s: %s is %s: the %s stage never "
                     "engaged" % (tag, k, st.get(k), stage))
     if "bridge" in stages:
-        # one kernel launch a dispatch on one card
+        # one kernel launch a dispatch on one card, timed by its events
+        require(st.get("bridge_kernel_time", 0) > 0, "%s: no bridge kernel "
+                "time" % tag)
         require(n["bridge"] == st["bridge_dispatches"]
                 == st["bridge_launches"] > 0,
                 "%s: %d bridge kernel launches (%d by the solver) for %d "
@@ -1604,10 +1753,150 @@ def _check_new_path(tag, st, n, stages, trust):
                 "(%d of %d)" % (tag, st["ladder_agree"], st["ladder_total"]))
 
 
+class _BridgeRows:
+    """Phase 3c's view of the bridge's dispatches, while active: the staged
+    rows of the first `keep` dispatches (copies), and over every dispatch
+    histograms of each instance's live length (its last vertex with a live
+    in-edge or a target, + 1) and of the valid candidates of each step
+    before it (the entries of its live predecessors, from the dispatch's
+    own pix).  Its own work in the run's clock is kept in `seconds`."""
+
+    LIVE_BINS = (1, 2, 3, 4, 5, 9, 17, 33, 65)
+    CAND_BINS = (0, 1, 2, 5, 11, 33, 161)
+
+    def __init__(self, keep=64):
+        import numpy as np
+        self.keep = keep
+        self.sample = []
+        self.live = np.zeros(len(self.LIVE_BINS) - 1, np.int64)
+        self.cands = np.zeros(len(self.CAND_BINS) - 1, np.int64)
+        self.steps = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        from aletsch_tpu_torch.ops import bridge_topk as BT
+        self._orig = orig = BT.DeviceBridge.solve
+        view = self
+
+        def solve(solver, nrows):
+            t0 = time.perf_counter()
+            rows = tuple(a[:nrows] for a in (solver.P, solver.Wt, solver.Lv,
+                                             solver.tgt))
+            if len(view.sample) < view.keep:
+                view.sample.append(tuple(a.copy() for a in rows))
+            t1 = time.perf_counter()
+            out = orig(solver, nrows)
+            t2 = time.perf_counter()
+            view.add(rows[0], rows[3], out[2])
+            view.seconds += t1 - t0 + time.perf_counter() - t2
+            return out
+        BT.DeviceBridge.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        from aletsch_tpu_torch.ops import bridge_topk as BT
+        BT.DeviceBridge.solve = self._orig
+
+    def add(self, P, tgt, pix):
+        """Count one dispatch's instances: P, tgt its staged rows, pix its
+        entry-index table."""
+        import numpy as np
+        n, V, _ = P.shape
+        live = (P >= 0) & (P < V)
+        k = np.arange(V)
+        last = np.where(live.any(axis=2), k, -1).max(axis=1)
+        last = np.maximum(last, np.where((tgt >= 0) & (tgt < V), tgt,
+                                         -1).max(axis=1))
+        length = last + 1
+        self.live += np.histogram(length, self.LIVE_BINS)[0]
+        entries = (pix >= 0).sum(axis=2)
+        entries[:, 0] = 1
+        m = (entries[np.arange(n)[:, None, None], np.clip(P, 0, V - 1)]
+             * live).sum(axis=2)
+        # the steps each instance runs: 1 .. its last live in-edge's vertex
+        run = (k[None, :] >= 1) & (k[None, :] <= np.where(
+            live.any(axis=2), k, -1).max(axis=1)[:, None])
+        self.cands += np.histogram(m[run], self.CAND_BINS)[0]
+        self.steps += int(run.sum())
+
+    def report(self):
+        def bins(edges, counts):
+            return ", ".join(
+                "%s: %d" % (("%d" % lo) if hi - lo == 1
+                            else "%d-%d" % (lo, hi - 1), c)
+                for lo, hi, c in zip(edges, edges[1:], counts))
+        log("bridge instances' live length (last vertex with a live in-edge "
+            "or a target, + 1): %s (%d instances)"
+            % (bins(self.LIVE_BINS, self.live), int(self.live.sum())))
+        log("bridge valid candidates a step, over the %d steps before each "
+            "instance's last live in-edge: %s"
+            % (self.steps, bins(self.CAND_BINS, self.cands)))
+        log("bridge watcher: its own work took %.3f s of the watched run's "
+            "wall" % self.seconds)
+
+    def time_sample(self, dev):
+        """The kernel over the sample's dispatches, each its own launch, as
+        the cohort ran them (_bridge_dispatches), then the profiling
+        instance's split over the first 64 instances."""
+        import numpy as np
+
+        from aletsch_tpu_torch.ops import bridge_topk as BT
+        _bridge_dispatches(BT, self.sample, dev, "as staged")
+        rows = [np.concatenate([r[i] for r in self.sample])[:64]
+                for i in range(4)]
+        _bridge_split(BT, "the cohort's own rows",
+                      BT.batch_from_numpy(*rows, dev))
+
+
+def _events_ms(calls, reps):
+    """Median over reps of the summed device time of the calls, each
+    between CUDA events, all queued behind a spin of the stream."""
+    import torch
+    sums = []
+    for _ in range(reps):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in calls]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4 * SPIN_CYCLES)
+        for (e0, e1), call in zip(ev, calls):
+            e0.record()
+            call()
+            e1.record()
+        require(not ev[0][0].query(), "the spin ended before the launches "
+                "were queued")
+        torch.cuda.synchronize()
+        sums.append(sum(e0.elapsed_time(e1) for e0, e1 in ev))
+    return statistics.median(sums)
+
+
+def _bridge_dispatches(BT, sample, dev, tag, reps=5):
+    """bridge_cuda (of the module BT) over a list of staged dispatches (P,
+    Wt, Lv, tgt numpy rows), each its own launch: every output equal to
+    the plain form's on the host CPU; logs and returns the launches'
+    summed device time, ms (_events_ms)."""
+    names = ("ostk", "par", "pix")
+    on_card = [BT.batch_from_numpy(*r, dev) for r in sample]
+    for r, c in zip(sample, on_card):
+        _outputs_same("bridge on the cohort's own rows: the kernel against "
+                      "the plain form on the host CPU", names,
+                      [t.cpu().numpy() for t in BT.bridge_cuda(*c)],
+                      [t.numpy() for t in BT.bridge_plain(
+                          *BT.batch_from_numpy(*r, "cpu"))])
+    ms = _events_ms([lambda c=c: BT.bridge_cuda(*c) for c in on_card], reps)
+    log("bridge kernel on the cohort's first %d dispatches (%d instances, "
+        "%s): == the plain form on the host CPU; device %.4f ms in all, "
+        "%.4f ms a launch (CUDA events around each launch, median of %d)"
+        % (len(sample), sum(len(r[0]) for r in sample), tag, ms,
+           ms / len(sample), reps))
+    return ms
+
+
 def new_path(tmp, lst, ref, forms, genes):
     """Phase 3c: the bridge, support and ladder stages through the port's
     CLI on the card, on the production cohort, in trust and in verify
-    mode."""
+    mode; in the verify run, the bridge's dispatches are watched
+    (_BridgeRows), and its kernel is then timed on the first 64
+    dispatches' rows."""
     ms = forms["ladder"][3]["host_ms"]
     projected = LADDER_DISPATCHES_PER_GENE * genes * ms / 1e3
     log("ladder projection: %.3f ms of host clock a 3-row dispatch (phase "
@@ -1619,11 +1908,17 @@ def new_path(tmp, lst, ref, forms, genes):
     for trust in (True, False):
         mode = "trust" if trust else "verify"
         out = os.path.join(tmp, "new_" + mode)
-        wall, st, n = _in_process_run(lst, out, extra, trust)
+        if trust:
+            wall, st, n = _in_process_run(lst, out, extra, trust)
+        else:
+            with _BridgeRows() as rows:
+                wall, st, n = _in_process_run(lst, out, extra, trust)
         _require_same(_outputs(out), ref, "the new path's %s-mode run" % mode)
         tag = "%d genes, %s, %s" % (genes, "+".join(stages), mode)
         _check_new_path(tag, st, n, stages, trust)
         res["runs"].append((tag, wall, st, n))
+    rows.report()
+    rows.time_sample("cuda")
     return res
 
 
@@ -2236,7 +2531,13 @@ def main(argv=None):
                               nst["ladder_decisions"], nst["ladder_agree"],
                               nst["ladder_total"], nst["ladder_kernel_time"],
                               nst["ladder_kernel_time"] / d * 1e3)
-                           if form == "ladder" else ""))
+                           if form == "ladder" else
+                           "; launch to completion %.3f s in all (%.4f ms "
+                           "a launch; CUDA events around each launch, so "
+                           "the card's wait for the launch is in it)"
+                           % (nst["bridge_kernel_time"],
+                              nst["bridge_kernel_time"] / d * 1e3)
+                           if form == "bridge" else ""))
         sc, jobs, tr = res["scoring"], res["jobs"], res["trace"]
         log("new phases on %s: scores CSV byte-identical over %d feature "
             "rows; --jobs 2 wall %.2f s against the one-process forced "

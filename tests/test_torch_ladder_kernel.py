@@ -608,3 +608,44 @@ def test_ladder_kernel_matches_plain_on_card():
     torch.cuda.synchronize()
     assert LK.ladder_cuda.launches == n0 + 1
     _assert_same("card", [t.cpu() for t in got], want)
+
+
+@pytest.mark.cuda
+def test_ladder_solver_over_a_mesh_of_cards(monkeypatch):
+    """DeviceLadder.solve on the card with the mesh emulated as two and as
+    three cuda:0 devices (ops/meshing.py's split and replicated branches)
+    at 1, 3, 37 and 64 rows of production-shape states == one device, bit
+    for bit: one kernel launch a shard, the mesh's bytes in and out
+    accounted (needs a GPU and nvcc; chip_smoke.py's phase 2c runs the
+    same check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from aletsch_tpu_torch.ops import meshing
+    shape = dict(V=LK.DEFAULT_V, E=LK.DEFAULT_E, H=LK.DEFAULT_H,
+                 L=LK.DEFAULT_L)
+    _, states = LK.fuzz_states(range(100), **shape)
+    assert len(states) >= 64      # some seeds give no state
+    arr = LK.pack_states(states[:64], 64, **shape)
+
+    def staged():
+        solver = DeviceLadder(device="cuda")
+        solver.stage_states(arr, 64)
+        return solver
+    one = staged()
+    want = {rows: one.solve(rows) for rows in (1, 3, 37, 64)}
+    for n in (2, 3):
+        monkeypatch.setattr(meshing, "_local_devices",
+                            lambda d, n=n: [torch.device("cuda", 0)] * n)
+        solver = staged()
+        for rows, w in want.items():
+            n0 = LK.ladder_cuda.launches
+            got = solver.solve(rows)
+            assert LK.ladder_cuda.launches == n0 + n, (n, rows)
+            _assert_same("%d devices, %d rows" % (n, rows), got, w)
+        st = solver.stats
+        assert st["mesh_devices"] == n and st["mesh_dispatches"] == 4
+        # the dispatch ships its rows padded to a power of two
+        shipped = sum(ladder_device.bucket(r, solver.batch) for r in want)
+        assert st["mesh_bytes_in"] == shipped * solver.row_bytes
+        assert st["mesh_bytes_out"] == sum(
+            a.nbytes for w in want.values() for a in w)
