@@ -6,9 +6,12 @@ an object in its own nvcc process, all started together, and one more nvcc
 links them.  The library goes to <repo>/build/aletsch_tpu_torch/, named by
 a hash of all the sources and the flags, and is built on first use; a
 failed build raises.  What ptxas reports for each kernel (registers, shared
-memory, spills) is kept beside the library, see ptxas_report.  Nothing here
-runs at import time: the CPU tests import every module on a machine without
-nvcc.
+memory, spills) is kept beside the library, see ptxas_report.  The library
+links the CUDA runtime as a shared library (CUDART): torch has loaded
+libcudart.so.12 before the library is opened, so the soname resolves to
+torch's, and the process holds one CUDA runtime (nvcc's default links a
+static runtime of the library's own into it).  Nothing here runs at import
+time: the CPU tests import every module on a machine without nvcc.
 """
 
 from __future__ import annotations
@@ -29,7 +32,10 @@ HEADERS = ("ladder_machine.cuh", "ladder_block.cuh", "bridge_machine.cuh",
            "team.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "aletsch_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+# the CUDA runtime: torch's, shared, not a static copy in the library; on
+# every nvcc command (and so in the build hash)
+CUDART = ("-cudart", "shared")
+NVCC_FLAGS = (*ARCH, *CUDART, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 # flags of one source beside NVCC_FLAGS: the ladder's f64 arithmetic must
 # not contract a product and a sum into a fused multiply-add
@@ -111,7 +117,8 @@ def build():
         for (cmd, _, proc), err in zip(jobs, errs):
             _check(cmd, proc.returncode, err)
         lib = os.path.join(tmp, "lib.so")
-        cmd = [nvcc, *ARCH, "-shared", "-o", lib, *[o for _, o, _ in jobs]]
+        cmd = [nvcc, *ARCH, *CUDART, "-shared", "-o", lib,
+               *[o for _, o, _ in jobs]]
         res = subprocess.run(cmd, capture_output=True, text=True)
         _check(cmd, res.returncode, res.stderr)
         with open(os.path.join(tmp, "ptxas.txt"), "w") as fh:

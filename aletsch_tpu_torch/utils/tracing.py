@@ -17,9 +17,16 @@ Verbose levels follow the reference convention (util/parameters.cc:28):
 
 from __future__ import annotations
 
+import json
+import re
 import sys
 import time
 from contextlib import contextmanager
+
+# a trace's categories of device work (torch.profiler's chrome trace), and
+# the runtime and driver calls that queue one record of it each
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_ENQUEUE = re.compile(r"^cu(da)?(Launch\w*Kernel\w*|Memcpy\w*|Memset\w*)$")
 
 
 def rss_mb():
@@ -32,6 +39,30 @@ def rss_mb():
     except OSError:
         pass
     return 0.0
+
+
+def read_trace(path):
+    """The event list of a *.pt.trace.json file."""
+    with open(path) as fh:
+        return json.load(fh)["traceEvents"]
+
+
+def device_counts(events):
+    """What a trace's events hold of the card's work: {category: count}
+    of its device records (DEVICE_CATS), and under "enqueued" the host's
+    calls that queued one each (kernel launches, copies, memsets, by the
+    runtime or the driver).  A trace that records every kernel and copy
+    holds as many device records as enqueueing calls."""
+    out = dict.fromkeys(DEVICE_CATS, 0)
+    out["enqueued"] = 0
+    for e in events:
+        cat = e.get("cat")
+        if cat in out:
+            out[cat] += 1
+        elif cat in ("cuda_runtime", "cuda_driver") \
+                and _ENQUEUE.match(e.get("name", "")):
+            out["enqueued"] += 1
+    return out
 
 
 class Tracer:
@@ -101,6 +132,11 @@ class Tracer:
         written on stop by tensorboard_trace_handler into the directory
         as <host>_<pid>.<ns>.pt.trace.json.  No shapes and no stacks, to
         keep the file small.  On the CPU device no CUDA context is made.
+        On a card the trace holds a device record of every kernel and copy
+        queued in the capture (device_counts), as the one capture of a
+        CLI process: a process that captures again after tens of seconds
+        of other work gets some of its device records placed outside the
+        capture's window by the profiler, which drops them (PERF.md).
         torch is imported here only.  A failure propagates."""
         if not self._jax_dir:
             return
@@ -121,10 +157,19 @@ class Tracer:
 
     def stop_jax_trace(self):
         """Stop the capture start_jax_trace began (self._jax_active holds
-        its profiler) and write the trace file."""
+        its profiler) and write the trace file.  On a card, the card
+        finishes its queued work first, so that every kernel and copy
+        launched inside the capture has its device record when the
+        profiler collects them."""
         if not self._jax_active:
             return
         prof, self._jax_active = self._jax_active, False
+        from torch.profiler import ProfilerActivity
+        if ProfilerActivity.CUDA in prof.activities:
+            import torch
+
+            from ..device import device as port_device
+            torch.cuda.synchronize(port_device())
         prof.stop()
 
 

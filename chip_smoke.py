@@ -8,8 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 Phases, each of which exits non-zero on failure:
 1. environment: the card's name and power limit, the kernel build from
    aletsch_tpu_torch/csrc with nvcc (sm_90a) and what ptxas reports for
-   each kernel, the native host core: the port's own build and, beside
-   it, native/libabam.so for the reference CLI;
+   each kernel, the kernel library's CUDA runtime (ldd: libcudart.so,
+   the one torch has loaded, the same version), the native host core: the
+   port's own build and, beside it, native/libabam.so for the reference
+   CLI;
 2. kernel vs plain: the drain kernel against its plain PyTorch version on
    the card and on the host CPU (IEEE f64), bit for bit in f64 (ws
    compared as int64 views) and against the plain version on the card in
@@ -18,9 +20,10 @@ Phases, each of which exits non-zero on failure:
    sinks below and above 32 and before the last vertex, rows with no path
    to the sink) and edge cases; then, at the main path's shapes, the
    kernel's device time (CUDA events with the host's launch cost held
-   outside the window, and the profiler's kernel time), the wrapper call's
-   time, the plain version's call time, and the kernel's roofline bound
-   with the share of it reached;
+   outside the window, and the profiler's kernel time: one record a
+   launch, within EVENT_GAP_MS and EVENT_SPREAD of the events' time), the
+   wrapper call's time, the plain version's call time, and the kernel's
+   roofline bound with the share of it reached;
 2b. bottleneck kernel vs plain: the single-source bottleneck kernel
    (csrc/bottleneck.cu) in both forms against its plain PyTorch version
    on the card and on the host CPU, bit for bit on int32 views with -0.0
@@ -43,8 +46,9 @@ Phases, each of which exits non-zero on failure:
    wrapper call's time, the plain form's time on the card (at 1 and 37
    rows) and its bound at each row count; then its solver
    (DeviceBridge.solve: one copy in, one launch, one copy out a dispatch,
-   the live rows only) against the oracle, with 3 device operations a
-   dispatch under the profiler; the support reduce
+   the live rows only) against the oracle, with exactly 3 device records
+   a dispatch under the profiler at each row count and the traced
+   dispatch's split (_dispatch_split); the support reduce
    (plain PyTorch) against its numpy oracle; the resolution ladder's
    hand-written kernel (csrc/ladder.cu, ladder_cuda) against its plain
    form (ladder_plain) on the card and on the host CPU, every output and
@@ -60,13 +64,16 @@ Phases, each of which exits non-zero on failure:
    and bound on the fixtures; its profiling instance (ladder_profile) at 3 and 64 rows of
    both, equal to the kernel in every output, with each pass's cycles an
    event, overall and by arm; then the solver (DeviceLadder.solve: one
-   copy in, one launch, one copy out a dispatch) against the kernel.  Both
+   copy in, one launch, one copy out a dispatch) against the kernel, 3
+   device records a dispatch and its split, as the bridge's.  Both
    solvers over the mesh emulated as two and as three cuda:0 devices
    (ops/meshing.py's split and replicated branches) at 1, 3, 37 and 64
    rows, bit for bit against one device, a launch a shard, the mesh's
    bytes accounted (_mesh_same).  For
    each solver: the host clock of a dispatch, and over one dispatch under
-   the profiler its device time and number of device kernels and copies;
+   the profiler its device time and number of device kernels and copies,
+   one device record for each one queued (so in every profiled window of
+   this script: _every_record);
 2d. the device forms this port runs as plain PyTorch beside those, on the
    card against their oracles: region_stats against region_stats_host in
    f64 (mx exact, ave and dev within 1e-6) at 256 and 65,536 regions;
@@ -93,15 +100,20 @@ Phases, each of which exits non-zero on failure:
    device off (the reference bytes) and through the port's CLI with the
    drain forced onto the card at --max_num_exons 8.  Both CLIs run as
    subprocesses, reference / port, for comparable walls; then the port
-   runs once more in this process under the profiler, with every launch
-   count reset just before it.  Every output file of every port run must
-   be byte-identical to the reference's, and the kernel must have carried
-   the drain.  The profiled run's device table is printed;
+   runs once more as a subprocess with --jax_profile_dir (its launch
+   counts start at 0 in the new process and are read from its device
+   stats line at its end).  Every output file of every port run must be
+   byte-identical to the reference's, and the kernel must have carried
+   the drain.  The traced run's largest device records are printed, and
+   its trace must hold one drain kernel record a launch and one device
+   record for each kernel and copy queued; its device time and idle share
+   (over the capture and over the subprocess's wall) are printed beside
+   the counts;
 3b. step path: the port's CLI once more with ALETSCH_DEVICE_GREEDY=step
-   (one bottleneck launch per extraction instead of the drain), in this
-   process under the profiler with the counts reset; every output file
-   byte-identical to the reference's, and the bottleneck kernel must have
-   carried every dispatch;
+   (one bottleneck launch per extraction instead of the drain), traced
+   as phase 3's; every output file byte-identical to the reference's, and
+   the bottleneck kernel must have carried every dispatch, with one kernel
+   record a launch in the trace;
 3c. the bridge, support and ladder stages on the card (--device_bridge on
    --device_support on --device_ladder on beside the forced drain) on the
    production cohort: in this process with every count reset (trust
@@ -154,10 +166,10 @@ Phases, each of which exits non-zero on failure:
    every output byte-identical, and each shard worker must have launched
    the drain kernel; then a --shard 0 2 / --shard 1 2 / --merge_shards
    round on the 200-gene cohort, byte-identical;
-3g. the device trace: the forced drain on the 200-gene cohort in this
-   process with --jax_profile_dir: the bytes unchanged, one
-   *.pt.trace.json, and among its CUDA kernel events the drain kernel's
-   (at most one a launch: the profiler may drop some);
+3g. the device trace: the forced drain on the 200-gene cohort through
+   python -m aletsch_tpu_torch --jax_profile_dir: the bytes unchanged, one
+   *.pt.trace.json, and in it exactly one drain kernel record a launch
+   and a device record for every kernel and copy queued;
 3h. the process group and the mesh: python -m aletsch_tpu_torch
    --jax_dist_launch 2 on the 200-gene cohort with the drain forced (two
    gloo ranks sharing the card; jax and aletsch_tpu unimportable, each
@@ -212,9 +224,22 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 
 sys.modules["jax"] = None
 sys.modules["aletsch_tpu"] = None
+# The profiler keeps one CUPTI for the whole process by default, and after
+# tens of seconds of other work (phase 2c's plain forms on the host CPU)
+# it places some or all of a later capture's device records outside the
+# capture's window and drops them (PERF.md; the card's host has no
+# constant TSC, the clock of the profiler's timestamps, phase 1 logs its
+# flags).  TEARDOWN_CUPTI=1 releases CUPTI at the end of each capture, so
+# each of this process's captures, all of work on its main thread, starts
+# on a fresh one (and _capture pads it).  A capture with
+# profile_all_threads, or of work on other threads, records nothing after
+# such a release: the CLI runs that are traced (phases 3, 3b, 3g) are
+# subprocesses, each with its one capture, as a user runs them.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GENES, SAMPLES = 2000, 10
@@ -296,6 +321,11 @@ def environment():
     name = torch.cuda.get_device_name(0)
     log("card: %s | torch.cuda: %s | torch %s, CUDA %s"
         % (smi, name, torch.__version__, torch.version.cuda))
+    with open("/proc/cpuinfo") as fh:
+        flags = next((ln.split(":", 1)[1].split() for ln in fh
+                      if ln.startswith("flags")), [])
+    log("host CPU's TSC flags (the profiler's host clock): %s"
+        % " ".join(sorted(f for f in flags if "tsc" in f)))
     # the JAX package's CLI (the reference runs below) loads
     # native/libabam.so and makes it on first use: make it here, beside
     # the kernels and the port's own build of the same sources
@@ -317,6 +347,7 @@ def environment():
             entry = m.group(1) + ("<%s>" % m.group(2) if m.group(2) else "")
         elif "spill" in line or "Used" in line:
             log("ptxas %s: %s" % (entry, line.split(":", 1)[-1].strip()))
+    _one_runtime(path)
     device_wave.require_native()
     _, err = ref_make.communicate(timeout=600)
     require(ref_make.returncode == 0, "make -C native failed: %s"
@@ -324,6 +355,37 @@ def environment():
     log("native core ready: the port's build and native/libabam.so (%.1f s "
         "with the kernels)" % (time.perf_counter() - t0))
     return smi, name
+
+
+def _one_runtime(path):
+    """The kernel library takes the CUDA runtime torch has loaded: ldd
+    names libcudart.so for it, the process maps one libcudart, and the
+    library's cudaRuntimeGetVersion (found through its dependency) reports
+    what that one does."""
+    import ctypes
+
+    from aletsch_tpu_torch.ops import _build
+    lib = _build.load_library()
+    ldd = [ln.strip() for ln in subprocess.run(
+        ["ldd", path], capture_output=True, text=True, timeout=60,
+        check=True).stdout.splitlines() if "libcudart" in ln]
+    with open("/proc/self/maps") as fh:
+        maps = sorted({f[-1] for f in (ln.split() for ln in fh)
+                       if len(f) == 6 and "libcudart" in
+                       os.path.basename(f[-1])})
+    require(len(ldd) == 1 and len(maps) == 1, "the kernel library's runtime "
+            "(ldd: %s) and the process's (%s) are not one libcudart"
+            % (ldd, maps))
+    ver = {}
+    for who, dll in (("the kernel library's", lib),
+                     ("torch's", ctypes.CDLL(maps[0]))):
+        v = ctypes.c_int(0)
+        require(dll.cudaRuntimeGetVersion(ctypes.byref(v)) == 0,
+                "cudaRuntimeGetVersion failed")
+        ver[who] = v.value
+    require(len(set(ver.values())) == 1, "CUDA runtime versions %s" % ver)
+    log("kernel library's CUDA runtime: %s; one libcudart in the process "
+        "(%s); version %s" % (ldd[0], maps[0], ver))
 
 
 # ------------------------------------------------------------ phase 2
@@ -460,39 +522,116 @@ def _device_ms(fn):
     return statistics.median(times)
 
 
-def _profile_rows(prof):
-    """{name: (count, summed device us)} of the device events of a
-    torch.profiler run."""
-    rows = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows[e.key] = (e.count, float(us))
-    return rows
+# the profiler's name of each kernel's device records, by _launches() key
+KERNEL_EVENT = {"drain": "drain_kernel", "bottleneck": "bottleneck_kernel",
+                "ladder": "ladder_kernel", "bridge": "bridge_kernel"}
+# A kernel's profiler record and its CUDA-event time (_device_ms) differ by
+# the gap the pair of events adds around the launch on the card, 0.0039 to
+# 0.0041 ms for every kernel and row count on an H100 80GB HBM3 at 700 W
+# (PERF.md), and by the spread of a kernel's time between calls, at most
+# 1.1 % in PR 11's runs (the bridge on the cohort's rows, 0.0100 against
+# 0.0101 ms): so 0 <= events - profiler <= EVENT_GAP_MS, each side widened
+# by EVENT_SPREAD of the events' time.
+EVENT_GAP_MS = 0.006
+EVENT_SPREAD = 0.02
 
 
-def _kernel_rows(rows, kernel="drain_kernel"):
-    """(count, summed device us) of the profiler rows of one kernel."""
-    n = sum(c for k, (c, _) in rows.items() if kernel in k)
-    us = sum(t for k, (_, t) in rows.items() if kernel in k)
-    return n, us
+# host time kept busy inside each capture of this process before its
+# first device work and after its last: the profiler's placement of device
+# records drifts from the host's clock on the card's host (its CPUs have
+# no constant TSC), and a record placed a little outside the capture's
+# window is dropped; busy, not asleep, so that the host's clock keeps its
+# rate inside the capture
+CAPTURE_PAD_S = 0.1
 
 
-def _profiled_ms(fn, kernel="drain_kernel"):
-    """Mean device time of the kernel over REPS calls of fn(), as the
-    profiler (CUPTI) records it; None when it records no kernel."""
+def _busy(seconds):
+    t = time.perf_counter() + seconds
+    while time.perf_counter() < t:
+        pass
+
+
+@contextmanager
+def _capture(cpu=False):
+    """A torch.profiler capture of the card (and of the host with cpu)
+    around the with-block, which runs between two CAPTURE_PAD_S of busy
+    host time; the card is synchronised before the second."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        _busy(CAPTURE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        _busy(CAPTURE_PAD_S)
+
+
+def _trace_events(prof):
+    """The chrome-trace events of a finished torch.profiler run."""
+    from aletsch_tpu_torch.utils import tracing
+    fd, path = tempfile.mkstemp(suffix=".pt.trace.json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        return tracing.read_trace(path)
+    finally:
+        os.unlink(path)
+
+
+def _every_record(tag, events):
+    """The device records of a trace, required to be one for each kernel,
+    copy and memset the host queued in its window, and at least one.
+    Returns device_counts(events)."""
+    from aletsch_tpu_torch.utils import tracing
+    c = tracing.device_counts(events)
+    n = sum(c[k] for k in tracing.DEVICE_CATS)
+    require(n == c["enqueued"] > 0, "%s: the trace holds %d device records "
+            "(%d kernels, %d copies, %d memsets) for %d kernels, copies and "
+            "memsets queued" % (tag, n, c["kernel"], c["gpu_memcpy"],
+                                c["gpu_memset"], c["enqueued"]))
+    return c
+
+
+def _device_us(events, name=""):
+    """(count, summed us) of the device records whose name holds `name`
+    (every device record with the default)."""
+    from aletsch_tpu_torch.utils import tracing
+    recs = [e for e in events if e.get("cat") in tracing.DEVICE_CATS
+            and name in e.get("name", "")]
+    return len(recs), sum(float(e.get("dur", 0.0)) for e in recs)
+
+
+def _profiled_ms(fn, kernel):
+    """Mean device time of a kernel (a _launches() key) over REPS calls of
+    fn(), as the profiler (CUPTI) records it: one record a launch, and one
+    for every kernel and copy queued, or the check fails."""
+    import torch
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    n0 = _launches()[kernel]
+    with _capture() as prof:
         for _ in range(REPS):
             fn()
-        torch.cuda.synchronize()
-    n, us = _kernel_rows(_profile_rows(prof), kernel)
-    return us / n / 1000.0 if n else None
+    launches = _launches()[kernel] - n0
+    events = _trace_events(prof)
+    _every_record("%s kernel, %d calls profiled" % (kernel, REPS), events)
+    n, us = _device_us(events, KERNEL_EVENT[kernel])
+    require(n == launches == REPS, "%s kernel: the profiler recorded %d "
+            "records for %d launches" % (kernel, n, launches))
+    return us / n / 1000.0
+
+
+def _agree(tag, t):
+    """The kernel's profiler time against its CUDA-event time: within the
+    event pair's gap and the spread (EVENT_GAP_MS, EVENT_SPREAD)."""
+    d = t["device"] - t["profiler"]
+    slack = EVENT_SPREAD * t["device"]
+    require(-slack <= d <= EVENT_GAP_MS + slack, "%s: the profiler's %.4f ms "
+            "and the CUDA events' %.4f ms differ by more than the event "
+            "gap (%.3f ms) and %.0f %%" % (tag, t["profiler"], t["device"],
+                                          EVENT_GAP_MS, 100 * EVENT_SPREAD))
+    return d
 
 
 def kernel_vs_plain(dev):
@@ -546,19 +685,21 @@ def kernel_vs_plain(dev):
     for n in (1, 2, 64):
         a = (Wb[:n], Pb[:n], sb[:n], cb[:n])
         t = {"device": _device_ms(lambda: D.drain_cuda(*a, MAXP)),
-             "profiler": _profiled_ms(lambda: D.drain_cuda(*a, MAXP)),
+             "profiler": _profiled_ms(lambda: D.drain_cuda(*a, MAXP),
+                                      "drain"),
              "call": _call_ms(lambda: D.drain_cuda(*a, MAXP)),
              "plain": _call_ms(lambda: D.drain_torch(*a, MAXP))}
         t["bound"], t["bound_by"], t["bytes"] = _drain_bound(
             a, D.drain_cuda(*a, MAXP))
         times[n] = t
         log("drain f64 nrows=%d: kernel device %.4f ms (events, launch "
-            "cost outside), profiler %s ms; wrapper call %.4f ms; plain "
+            "cost outside), profiler %.4f ms (%d records for %d launches; "
+            "events - profiler %.4f ms); wrapper call %.4f ms; plain "
             "call %.4f ms (medians of %d); bound %.7f ms (%s; %d bytes needed "
             "at sinks %s), share of it reached %.3f %%"
-            % (n, t["device"], "%.4f" % t["profiler"] if t["profiler"]
-               else "not measured", t["call"], t["plain"], REPS, t["bound"],
-               t["bound_by"], t["bytes"],
+            % (n, t["device"], t["profiler"], REPS, REPS,
+               _agree("drain nrows=%d" % n, t), t["call"], t["plain"], REPS,
+               t["bound"], t["bound_by"], t["bytes"],
                "%d to %d" % (int(a[2].min()), int(a[2].max())),
                100.0 * t["bound"] / t["device"]))
     return err, times
@@ -684,20 +825,22 @@ def bottleneck_vs_plain(dev):
             a = Wd[:n]
             t = {"device": _device_ms(lambda: BN.bottleneck_cuda(a, neg_form)),
                  "profiler": _profiled_ms(
-                     lambda: BN.bottleneck_cuda(a, neg_form),
-                     "bottleneck_kernel"),
+                     lambda: BN.bottleneck_cuda(a, neg_form), "bottleneck"),
                  "call": _call_ms(lambda: BN.bottleneck_cuda(a, neg_form)),
                  "plain": _call_ms(lambda: BN.bottleneck_torch(a, neg_form))}
             t["bound"], t["bound_by"], t["bytes"] = _bottleneck_bound(
                 a, BN.bottleneck_cuda(a, neg_form))
             times[form, n] = t
             log("bottleneck %s form, V=64, nrows=%d: kernel device %.4f ms "
-                "(events, launch cost outside), profiler %s ms; wrapper "
-                "call %.4f ms; plain call %.4f ms (medians of %d); bound "
-                "%.7f ms (%s; %d bytes needed), share of it reached %.3f %%"
-                % (form, n, t["device"], "%.4f" % t["profiler"]
-                   if t["profiler"] else "not measured", t["call"],
-                   t["plain"], REPS, t["bound"], t["bound_by"], t["bytes"],
+                "(events, launch cost outside), profiler %.4f ms (%d "
+                "records for %d launches; events - profiler %.4f ms); "
+                "wrapper call %.4f ms; plain call %.4f ms (medians of %d); "
+                "bound %.7f ms (%s; %d bytes needed), share of it reached "
+                "%.3f %%"
+                % (form, n, t["device"], t["profiler"], REPS, REPS,
+                   _agree("bottleneck %s nrows=%d" % (form, n), t),
+                   t["call"], t["plain"], REPS, t["bound"], t["bound_by"],
+                   t["bytes"],
                    100.0 * t["bound"] / t["device"]))
     return err, pos_launches, times
 
@@ -714,34 +857,108 @@ def _host_ms(fn, reps):
     return statistics.median(times)
 
 
-def _dispatch_profile(fn):
-    """(device ms, device kernels and copies) of one call of fn(), as the
-    profiler (CUPTI) records them; (None, 0) when it records nothing."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = _profile_rows(prof)
-    n = sum(c for c, _ in rows.values())
-    return (sum(t for _, t in rows.values()) / 1000.0 if n else None), n
+def _dispatch_profile(tag, fn, calls=1):
+    """(device ms a call, device records a call, the trace's events) of
+    `calls` calls of fn() under the profiler (host and card; each call
+    inside the annotation "dispatch"): every kernel and copy queued has its
+    device record, and there is one at least."""
+    from torch.profiler import record_function
+    with _capture(cpu=True) as prof:
+        for _ in range(calls):
+            with record_function("dispatch"):
+                fn()
+    events = _trace_events(prof)
+    _every_record(tag, events)
+    n, us = _device_us(events)
+    return us / calls / 1000.0, n / calls, events
 
 
-def _form_times(tag, solve, sizes, reps, extra=lambda n: ""):
+def _dispatch_split(events):
+    """The traced dispatches of one copy in, one kernel and one copy out,
+    by part, ms (medians over the dispatches but the window's first, which
+    pays the profiler's own start): on the host, the dispatch's span, its
+    runtime calls (the copy in, the launch, the copy out, the wait for the
+    card, the others: events, attributes) and its own work outside them;
+    on the card, the copy in, the gap to the kernel, the kernel, the gap to
+    the copy out and the copy out, each record found by its call's
+    correlation id.  The host's and the card's clocks are not compared."""
+    from aletsch_tpu_torch.utils import tracing
+
+    def ts(e):
+        return float(e["ts"])
+
+    def end(e):
+        return ts(e) + float(e.get("dur", 0.0))
+
+    def corr(e):
+        return e.get("args", {}).get("correlation")
+
+    card = {corr(e): e for e in events if e.get("cat") in tracing.DEVICE_CATS}
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name") == "dispatch"), key=ts)
+    parts = []
+    for span in spans[1:]:
+        calls = sorted((e for e in events
+                        if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                        and ts(span) <= ts(e) <= end(span)), key=ts)
+        copies = [e for e in calls if e["name"].startswith("cudaMemcpy")]
+        launches = [e for e in calls if "LaunchKernel" in e["name"]]
+        waits = [e for e in calls if "Synchronize" in e["name"]]
+        recs = [card.get(corr(e)) for e in (copies + launches)]
+        require(len(copies) == 2 and len(launches) == 1 and None not in recs
+                and recs[2].get("cat") == "kernel", "a traced dispatch is "
+                "not one copy in, one launch and one copy out")
+        cin, cout, kern = recs
+        part = {"host": float(span["dur"]),
+                "copy in call": float(copies[0]["dur"]),
+                "launch call": float(launches[0]["dur"]),
+                "copy out call": float(copies[1]["dur"]),
+                "wait": sum(float(e["dur"]) for e in waits),
+                "other calls": sum(float(e["dur"]) for e in calls
+                                   if e not in copies + launches + waits)}
+        part["host work"] = part["host"] - sum(
+            v for k, v in part.items() if k != "host")
+        part.update({"copy in": float(cin["dur"]),
+                     "gap in": ts(kern) - end(cin),
+                     "kernel": float(kern["dur"]),
+                     "gap out": ts(cout) - end(kern),
+                     "copy out": float(cout["dur"])})
+        parts.append(part)
+    require(parts, "no traced dispatch to split")
+    return {k: statistics.median(p[k] for p in parts) / 1000.0
+            for k in parts[0]}
+
+
+# calls of a solver in its profiled window: the first pays the profiler's
+# start, the others are split (_dispatch_split)
+SPLIT_CALLS = 6
+
+
+def _form_times(tag, solve, sizes, reps, ops=None):
     """Time one solver's dispatch at each size: host clock, device time and
-    device kernels.  Returns {n: {...}}."""
+    device records (kernels and copies), one for each queued; with `ops`
+    (a dispatch of one copy in, one kernel and one copy out: 3), exactly
+    that many a dispatch in a window of SPLIT_CALLS dispatches, and their
+    split (_dispatch_split).  Returns {n: {...}}."""
     out = {}
     for n in sizes:
         t = {"host_ms": _host_ms(lambda: solve(n), reps)}
-        t["device_ms"], t["kernels"] = _dispatch_profile(lambda: solve(n))
+        calls = 1 if ops is None else SPLIT_CALLS
+        t["device_ms"], t["kernels"], events = _dispatch_profile(
+            "%s nrows=%d" % (tag, n), lambda: solve(n), calls)
+        split = ""
+        if ops is not None:
+            require(t["kernels"] == ops, "%s nrows=%d: %g device records a "
+                    "dispatch, not %d" % (tag, n, t["kernels"], ops))
+            t["split"] = _dispatch_split(events)
+            split = "; traced, medians of %d: %s" % (calls - 1, ", ".join(
+                "%s %.4f" % kv for kv in t["split"].items()))
         out[n] = t
         log("%s nrows=%d: host clock %.3f ms a dispatch (median of %d); "
-            "device time %s over %d device kernels and copies a dispatch "
-            "(profiler)%s"
-            % (tag, n, t["host_ms"], reps, "%.3f ms" % t["device_ms"]
-               if t["device_ms"] is not None else "not measured",
-               t["kernels"], extra(n)))
+            "device time %.3f ms over %g device kernels and copies a "
+            "dispatch, one record for each queued (profiler)%s"
+            % (tag, n, t["host_ms"], reps, t["device_ms"], t["kernels"],
+               split))
     return out
 
 
@@ -939,7 +1156,7 @@ def ladder_vs_plain(dev):
         outs = LK.ladder_cuda(*a, with_events=True)
         t = {"device": _device_ms(lambda: LK.ladder_cuda(*a)),
              "profiler": _profiled_ms(lambda: LK.ladder_cuda(*a),
-                                      "ladder_kernel"),
+                                      "ladder"),
              "call": _call_ms(lambda: LK.ladder_cuda(*a)),
              # the plain form at 3 and 64 rows only (the script's time)
              "plain": _host_ms(lambda: [t.cpu() for t in LK.ladder_plain(
@@ -949,12 +1166,13 @@ def ladder_vs_plain(dev):
         times[n] = t
         log("ladder kernel nrows=%d (%d events in the longest graph, %d in "
             "all): device %.4f ms (events, launch cost outside), profiler "
-            "%s ms; wrapper call %.4f ms; plain form's call %s (host "
-            "clock, median of 2); bound %.7f ms (%s; %d bytes), share of it "
+            "%.4f ms (%d records for %d launches; events - profiler %.4f "
+            "ms); wrapper call %.4f ms; plain form's call %s (host clock, "
+            "median of 2); bound %.7f ms (%s; %d bytes), share of it "
             "reached %.4f %%"
-            % (n, t["events"], t["sum"], t["device"],
-               "%.4f" % t["profiler"] if t["profiler"] else "not measured",
-               t["call"], "%.2f ms" % t["plain"] if t["plain"] is not None
+            % (n, t["events"], t["sum"], t["device"], t["profiler"], REPS,
+               REPS, _agree("ladder nrows=%d" % n, t), t["call"],
+               "%.2f ms" % t["plain"] if t["plain"] is not None
                else "not timed", t["bound"], t["bound_by"], t["bytes"],
                100.0 * t["bound"] / t["device"]))
     fix_card = LK.batch_from_numpy(fix, dev)
@@ -986,7 +1204,7 @@ def ladder_vs_plain(dev):
     require(LK.ladder_cuda.launches == n0 + 1, "a ladder dispatch launched "
             "the kernel %d times" % (LK.ladder_cuda.launches - n0))
     solve = _form_times("ladder solve(), one kernel launch,", ldev.solve,
-                        (1, 3, 55, 64), 5)
+                        (1, 3, 55, 64), 5, ops=3)
 
     def staged():
         solver = DeviceLadder(device=dev)
@@ -1185,7 +1403,7 @@ def bridge_vs_plain(dev):
         outs = BT.bridge_cuda(*a)
         t = {"device": _device_ms(lambda: BT.bridge_cuda(*a)),
              "profiler": _profiled_ms(lambda: BT.bridge_cuda(*a),
-                                      "bridge_kernel"),
+                                      "bridge"),
              "call": _call_ms(lambda: BT.bridge_cuda(*a)),
              # the plain form at 1 and 37 rows only (the script's time)
              "plain": _host_ms(lambda: [t.cpu() for t in BT.bridge_plain(
@@ -1193,12 +1411,13 @@ def bridge_vs_plain(dev):
         t["bound"], t["bound_by"], t["bytes"] = _bridge_bound(a, outs)
         times[n] = t
         log("bridge kernel nrows=%d (random batch): device %.4f ms (events, "
-            "launch cost outside), profiler %s ms; wrapper call %.4f ms; "
+            "launch cost outside), profiler %.4f ms (%d records for %d "
+            "launches; events - profiler %.4f ms); wrapper call %.4f ms; "
             "plain form's call on the card %s (host clock, median of 3); "
             "bound %.7f ms (%s; %d bytes), share of it reached %.4f %%"
-            % (n, t["device"],
-               "%.4f" % t["profiler"] if t["profiler"] else "not measured",
-               t["call"], "%.2f ms" % t["plain"] if t["plain"] is not None
+            % (n, t["device"], t["profiler"], REPS, REPS,
+               _agree("bridge nrows=%d" % n, t), t["call"],
+               "%.2f ms" % t["plain"] if t["plain"] is not None
                else "not timed", t["bound"], t["bound_by"], t["bytes"],
                100.0 * t["bound"] / t["device"]))
     # the solver: the live rows only, one copy in, one launch, one copy
@@ -1222,11 +1441,7 @@ def bridge_vs_plain(dev):
         g, bdev._out.numpy()) for g in got), "bridge solve(): results are "
         "views of the pinned buffer")
     solve = _form_times("bridge solve(), one kernel launch,", bdev.solve,
-                        rows, 5)
-    for n, t in solve.items():
-        require(t["kernels"] in (0, 3), "bridge solve(%d): %d device "
-                "operations a dispatch, not the copy in, the kernel and the "
-                "copy out" % (n, t["kernels"]))
+                        rows, 5, ops=3)
     _mesh_same("bridge solve()", staged, rows,
                lambda: BT.bridge_cuda.launches, names)
     return err, times, solve
@@ -1259,7 +1474,8 @@ def torch_forms_vs_oracles(dev):
     log("support reduce on the card == numpy oracle, exactly, [n, %d, %d] "
         "at 1 and 64 rows" % jw.shape[1:])
     sdev.jw[...] = jw
-    res["support"] = _form_times("support solve()", sdev.solve, (1, 64), 25)
+    res["support"] = _form_times("support solve()", sdev.solve, (1, 64), 25,
+                                 ops=3)
 
     # ladder
     res["ladder_err"], res["ladder_kernel"], res["ladder"] = \
@@ -1576,15 +1792,80 @@ def _require_same(got, ref, what):
                 "reference's" % (name, what))
 
 
+def _traced_cli(tmp, lst, out, env, tag):
+    """The port's CLI as a subprocess with the drain forced (DEVICE_ARGS)
+    and --jax_profile_dir: its one capture, that of a process as a user
+    runs it.  Returns {"wall", "stats" (the device stats line),
+    "events" (the trace), "window_s" (the capture's span), "counts"
+    (_every_record)}."""
+    import ast
+    import glob
+
+    from aletsch_tpu_torch.utils import tracing
+    trace_dir = os.path.join(tmp, "trace_" + os.path.basename(out))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "aletsch_tpu_torch", "-i", lst,
+         *_cli_args(out), *DEVICE_ARGS, "--verbose", "1",
+         "--jax_profile_dir", trace_dir], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    require(res.returncode == 0, "%s failed: %s" % (tag, res.stderr[-2000:]))
+    lines = [ln for ln in res.stderr.splitlines()
+             if ln.startswith("[aletsch_tpu_torch] device:")]
+    require(lines, "%s printed no device stats line" % tag)
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    require(len(files) == 1, "%s left %d trace files" % (tag, len(files)))
+    events = tracing.read_trace(files[0])
+    span = [e for e in events if e.get("cat") == "Trace"]
+    require(len(span) == 1, "%s: no capture span in the trace" % tag)
+    return {"wall": wall, "events": events, "bytes":
+            os.path.getsize(files[0]), "window_s":
+            float(span[0]["dur"]) / 1e6, "counts": _every_record(tag, events),
+            "stats": ast.literal_eval(lines[-1].split("device:", 1)[1]
+                                      .strip())}
+
+
+def _top_records(events, n=8):
+    """The trace's n device records with the largest summed time, by name:
+    lines of (calls, ms, name)."""
+    from aletsch_tpu_torch.utils import tracing
+    by = {}
+    for e in events:
+        if e.get("cat") in tracing.DEVICE_CATS:
+            c, us = by.get(e["name"], (0, 0.0))
+            by[e["name"]] = (c + 1, us + float(e.get("dur", 0.0)))
+    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:n]
+    return "\n".join("  %7d  %10.3f ms  %s" % (c, us / 1000.0, name[:90])
+                     for name, (c, us) in top)
+
+
+def _profiled_run(tag, card, run, kernel, launches):
+    """Checks and logs one traced CLI run (_traced_cli): one kernel record
+    for each launch of `kernel`, its device time, all device work, and
+    the device's idle share over the capture's span and over the
+    subprocess's wall."""
+    c = run["counts"]
+    n, us = _device_us(run["events"], KERNEL_EVENT[kernel])
+    _, busy_us = _device_us(run["events"])
+    require(n == launches, "the profiled %s run: %d %s kernel records for "
+            "%d launches" % (tag, n, kernel, launches))
+    log("profiled %s run on %s (the CLI as a subprocess, traced): wall "
+        "%.2f s, capture %.2f s; %s kernel device time %.2f ms over %d "
+        "records for %d launches; %d device records (%d kernels, %d copies, "
+        "%d memsets) for %d queued; all device work %.2f ms; device idle "
+        "share %.4f of the capture, %.4f of the wall"
+        % (tag, card, run["wall"], run["window_s"], kernel, us / 1000.0, n,
+           launches, c["kernel"] + c["gpu_memcpy"] + c["gpu_memset"],
+           c["kernel"], c["gpu_memcpy"], c["gpu_memset"], c["enqueued"],
+           busy_us / 1000.0, 1.0 - busy_us / 1e6 / run["window_s"],
+           1.0 - busy_us / 1e6 / run["wall"]))
+
+
 def main_path(forms, smi, genes=GENES, samples=SAMPLES):
     """Reference and port CLIs on the production cohort.  Returns a dict
-    of walls, the profiled run's device stats, launch count and device
-    rows, and the step path's and the new path's results."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from aletsch_tpu_torch import __main__ as port_main
-    from aletsch_tpu_torch.meta import device_wave
+    of walls, the profiled run (_traced_cli: its device stats, launch
+    counts and trace), and the step path's and the new path's results."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = {}
     with tempfile.TemporaryDirectory(prefix="aletsch_chip_smoke_") as tmp:
@@ -1610,24 +1891,14 @@ def main_path(forms, smi, genes=GENES, samples=SAMPLES):
             % (walls["reference"], walls["port"], len(ref),
                len(ref["meta.gtf"])))
 
+        # the profiled port run: the CLI as a subprocess with its trace
         out = os.path.join(tmp, "profiled")
-        args = ["-i", lst, *_cli_args(out), *DEVICE_ARGS]
-        _reset_launches()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            require(port_main.main(args) == 0, "port CLI failed")
-            torch.cuda.synchronize()
-        res["profiled_wall"] = time.perf_counter() - t0
-        n = _launches()
-        require(n["bottleneck"] == 0, "the fused path launched the "
-                "bottleneck kernel %d times" % n["bottleneck"])
-        res["launches"] = n["drain"]
+        prof = _traced_cli(tmp, lst, out, _trace_env(tmp, env),
+                           "the profiled port run")
         _require_same(_outputs(out), ref, "the profiled port run")
-        res["stats"] = device_wave.device_stats()
-        res["rows"] = _profile_rows(prof)
-        print(prof.key_averages().table(sort_by="self_device_time_total",
-                                        row_limit=12), flush=True)
-        res["step"] = step_path(tmp, lst, ref)
+        res["profiled"] = prof
+        print(_top_records(prof["events"]), flush=True)
+        res["step"] = step_path(tmp, lst, ref, env)
         res["new"] = new_path(tmp, lst, ref, forms, genes)
         # the small cohort of phases 3d to 3h, and its reference bytes
         small = _build_cohort(os.path.join(tmp, "cohort_small"), SMALL_GENES,
@@ -1641,44 +1912,29 @@ def main_path(forms, smi, genes=GENES, samples=SAMPLES):
         res["scoring"] = scoring_path(tmp, os.path.join(tmp, "port1", "gtf"),
                                       samples, env)
         res["jobs"] = jobs_path(tmp, lst, ref, env, small, small_ref)
-        res["trace"] = trace_path(tmp, small, small_ref)
+        res["trace"] = trace_path(tmp, small, small_ref, env)
         res["mesh"] = mesh_path(tmp, small, small_ref, env, smi)
     res["walls"] = walls
     return res
 
 
-def step_path(tmp, lst, ref):
-    """Phase 3b: the port's CLI in step mode, in this process under the
-    profiler with the counts reset."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _trace_env(tmp, env, **extra):
+    """The environment of a traced CLI subprocess: jax and the JAX package
+    unimportable (CHILD_SHIM), the card, and the profiler's default of
+    one CUPTI kept for the process (its only capture)."""
+    cenv = dict(_child_env(tmp, env), **extra)
+    cenv.pop("TEARDOWN_CUPTI", None)
+    return cenv
 
-    from aletsch_tpu_torch import __main__ as port_main
-    from aletsch_tpu_torch.meta import device_wave
-    res = {}
+
+def step_path(tmp, lst, ref, env):
+    """Phase 3b: the port's CLI in step mode as a subprocess with its
+    trace."""
     out = os.path.join(tmp, "step_profiled")
-    args = ["-i", lst, *_cli_args(out), *DEVICE_ARGS]
-    os.environ["ALETSCH_DEVICE_GREEDY"] = "step"
-    try:
-        for k in device_wave.stats:
-            device_wave.stats[k] = 0
-        _reset_launches()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            require(port_main.main(args) == 0, "step-mode port CLI failed")
-            torch.cuda.synchronize()
-        res["profiled_wall"] = time.perf_counter() - t0
-        n = _launches()
-    finally:
-        del os.environ["ALETSCH_DEVICE_GREEDY"]
-    require(n["drain"] == 0, "the step path launched the drain kernel %d "
-            "times" % n["drain"])
-    res["launches"] = n["bottleneck"]
+    res = _traced_cli(tmp, lst, out, _trace_env(
+        tmp, env, ALETSCH_DEVICE_GREEDY="step"), "the profiled step-mode run")
     _require_same(_outputs(out), ref, "the profiled step-mode run")
-    res["stats"] = device_wave.device_stats()
-    res["rows"] = _profile_rows(prof)
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=12), flush=True)
+    print(_top_records(res["events"]), flush=True)
     return res
 
 
@@ -2148,8 +2404,8 @@ def _forest_times(tag, fa, n, seed):
             % (tag, n, float(np.abs(got - want).max())))
     t = {"rows": n, "numpy_ms": numpy_ms,
          "host_ms": _host_ms(lambda: F.predict_proba(fa, X), 5)}
-    t["device_ms"], t["kernels"] = _dispatch_profile(
-        lambda: F.predict_proba(fa, X))
+    t["device_ms"], t["kernels"], _ = _dispatch_profile(
+        "forest %s, %d rows" % (tag, n), lambda: F.predict_proba(fa, X))
     return t
 
 
@@ -2208,12 +2464,11 @@ def scoring_path(tmp, gtf_dir, samples, env):
             res["times"][tag, n] = r
             log("forest %s (%d trees, %d nodes, max_depth %d), %d rows: "
                 "card == _predict_numpy bit for bit; host clock %.3f ms a "
-                "call (median of 5), device %s in %d kernels and copies; "
-                "_predict_numpy %.3f ms"
+                "call (median of 5), device %.3f ms in %g kernels and "
+                "copies, one record for each queued; _predict_numpy %.3f ms"
                 % (tag, forest.feature.shape[0], forest.feature.shape[1],
-                   forest.max_depth, n, r["host_ms"],
-                   "%.3f ms" % r["device_ms"] if r["device_ms"] is not None
-                   else "not measured", r["kernels"], r["numpy_ms"]))
+                   forest.max_depth, n, r["host_ms"], r["device_ms"],
+                   r["kernels"], r["numpy_ms"]))
     log("phase 3e took %.1f s" % (time.perf_counter() - t0))
     return res
 
@@ -2270,41 +2525,29 @@ def jobs_path(tmp, lst, ref, env, small, small_ref):
 
 
 # ------------------------------------------------------------ phase 3g
-def trace_path(tmp, small, small_ref):
-    """Phase 3g: the forced drain with --jax_profile_dir, in this process;
-    the trace must hold the drain kernel's events."""
-    import glob
-
-    from aletsch_tpu_torch import __main__ as port_main
+def trace_path(tmp, small, small_ref, env):
+    """Phase 3g: the forced drain with --jax_profile_dir, the CLI as a
+    subprocess; the trace must hold one drain kernel record for each
+    launch, and a device record for every kernel and copy queued."""
     t0 = time.perf_counter()
-    trace_dir = os.path.join(tmp, "trace")
     out = os.path.join(tmp, "traced")
-    _reset_launches()
-    require(port_main.main(["-i", small, *_cli_args(out), *DEVICE_ARGS,
-                            "--jax_profile_dir", trace_dir]) == 0,
-            "the traced port run failed")
-    launches = _launches()["drain"]
+    tr = _traced_cli(tmp, small, out, _trace_env(tmp, env),
+                     "the --jax_profile_dir run")
     _require_same(_outputs(out), small_ref, "the traced run")
-    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
-    require(len(files) == 1, "the traced run left %d trace files" % len(files))
-    with open(files[0]) as fh:
-        events = json.load(fh)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    drains = [e for e in kernels if "drain_kernel" in e.get("name", "")]
-    # the profiler may drop device events in a long process (one run kept
-    # 228 of 236), so the trace must hold drain kernels, not every one
-    require(0 < len(drains) <= launches,
-            "the trace holds %d drain kernel events for %d launches"
-            % (len(drains), launches))
-    res = {"bytes": os.path.getsize(files[0]), "events": len(events),
-           "kernels": len(kernels), "drain_events": len(drains),
-           "drain_us": sum(e.get("dur", 0) for e in drains)}
-    log("--jax_profile_dir, %d-gene cohort, drain forced: byte-identical; "
-        "%s: %d bytes, %d events, %d CUDA kernel events, %d of them the "
-        "drain kernel's (%d launches, %.1f us)"
-        % (SMALL_GENES, os.path.basename(files[0]), res["bytes"],
-           res["events"], res["kernels"], res["drain_events"], launches,
-           res["drain_us"]))
+    launches = tr["stats"]["drain_launches"]
+    n, us = _device_us(tr["events"], KERNEL_EVENT["drain"])
+    require(n == launches > 0, "the trace holds %d drain kernel records for "
+            "%d launches" % (n, launches))
+    c = tr["counts"]
+    res = {"bytes": tr["bytes"], "events": len(tr["events"]),
+           "kernels": c["kernel"], "drain_events": n, "drain_us": us}
+    log("--jax_profile_dir, %d-gene cohort, drain forced (a subprocess): "
+        "byte-identical; the trace: %d bytes, %d events; %d device records "
+        "(%d kernels, %d copies, %d memsets) for %d queued; %d drain kernel "
+        "records for %d launches (%.1f us)"
+        % (SMALL_GENES, res["bytes"], res["events"],
+           c["kernel"] + c["gpu_memcpy"] + c["gpu_memset"], c["kernel"],
+           c["gpu_memcpy"], c["gpu_memset"], c["enqueued"], n, launches, us))
     log("phase 3g took %.1f s" % (time.perf_counter() - t0))
     return res
 
@@ -2411,7 +2654,7 @@ def new_phases(phases, smi, genes=SMALL_GENES, samples=SAMPLES):
         if "3f" in phases:
             jobs_path(tmp, lst, ref, env, lst, ref)
         if "3g" in phases:
-            trace_path(tmp, lst, ref)
+            trace_path(tmp, lst, ref, env)
         if "3h" in phases:
             mesh_path(tmp, lst, ref, env, smi)
 
@@ -2460,8 +2703,11 @@ def main(argv=None):
             log("--kernels-only: stopping before the main path")
             return 0
         res = main_path(forms, smi)
-        st, launches, rows = res["stats"], res["launches"], res["rows"]
+        prof = res["profiled"]
+        st, launches = prof["stats"], prof["stats"]["drain_launches"]
         log("device stats: %s" % json.dumps(st, sort_keys=True))
+        require(st["bottleneck_launches"] == 0, "the fused path launched the "
+                "bottleneck kernel %d times" % st["bottleneck_launches"])
         require(st.get("fused_graphs", 0) > 0, "the drain never engaged")
         require(launches >= st["fused_dispatches"] > 0,
                 "kernel launches %d < dispatches %d"
@@ -2470,41 +2716,27 @@ def main(argv=None):
         require(st["fused_agree"] == st["fused_total"] > 0,
                 "device paths disagree with the host drain (%d of %d)"
                 % (st["fused_agree"], st["fused_total"]))
-        n_prof, drain_us = _kernel_rows(rows)
-        busy_us = sum(t for _, t in rows.values())
-        wall = res["profiled_wall"]
-        if n_prof:
-            log("profiled port run on %s: wall %.2f s; drain kernel device "
-                "time %.2f ms over %d kernels; all device work %.2f ms, "
-                "device idle share %.4f"
-                % (name, wall, drain_us / 1000.0, n_prof, busy_us / 1000.0,
-                   1.0 - busy_us / 1e6 / wall))
-        else:
-            log("profiled port run on %s: wall %.2f s; the profiler "
-                "recorded no device events: device time not measured"
-                % (name, wall))
+        _profiled_run("port", name, prof, "drain", launches)
         log("solve() host clock %.3f s over %d launches, %d graphs; "
             "wrapper-call-to-kernel-end events %.2f ms (host launch cost "
             "included)" % (st["fused_device_time"], launches,
                            st["fused_graphs"], st["fused_launch_ms"]))
         step = res["step"]
-        sst, step_launches = step["stats"], step["launches"]
+        sst = step["stats"]
+        step_launches = sst["bottleneck_launches"]
         log("step-mode device stats: %s" % json.dumps(sst, sort_keys=True))
+        require(sst["drain_launches"] == 0, "the step path launched the "
+                "drain kernel %d times" % sst["drain_launches"])
         require(sst["device_steps"] > 0, "step mode consumed no device row")
         require(step_launches >= sst["dispatches"] > 0,
                 "bottleneck launches %d < dispatches %d"
                 % (step_launches, sst["dispatches"]))
-        n_bn, bn_us = _kernel_rows(step["rows"], "bottleneck_kernel")
-        busy_us = sum(t for _, t in step["rows"].values())
-        wall = step["profiled_wall"]
-        log("profiled step-mode run on %s: wall %.2f s; %d dispatches, %d "
-            "device rows, %d host graphs; bottleneck kernel device time %s "
-            "over %d kernels; all device work %.2f ms, device idle share "
-            "%.4f; solve() host clock %.3f s"
-            % (name, wall, sst["dispatches"], sst["device_steps"],
-               sst["host_graphs"], "%.2f ms" % (bn_us / 1000.0) if n_bn
-               else "not measured", n_bn, busy_us / 1000.0,
-               1.0 - busy_us / 1e6 / wall, sst["device_time"]))
+        _profiled_run("step-mode", name, step, "bottleneck", step_launches)
+        log("step mode: %d dispatches, %d device rows, %d host graphs; "
+            "solve() host clock %.3f s" % (sst["dispatches"],
+                                          sst["device_steps"],
+                                          sst["host_graphs"],
+                                          sst["device_time"]))
         new = res["new"]
         for tag, wall, nst, n in new["runs"]:
             log("new path run (%s) on %s: wall %.2f s; drain launches %d, "
@@ -2542,7 +2774,7 @@ def main(argv=None):
         log("new phases on %s: scores CSV byte-identical over %d feature "
             "rows; --jobs 2 wall %.2f s against the one-process forced "
             "port's %.2f s, drain launches per worker %s; the trace holds "
-            "%d drain kernel events (%d bytes)"
+            "%d drain kernel records, one a launch (%d bytes)"
             % (name, sc["csv_rows"], jobs["wall"], res["walls"]["port"][0],
                jobs["worker_launches"], tr["drain_events"], tr["bytes"]))
         ms = res["mesh"]
@@ -2619,4 +2851,11 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    # leave without the interpreter's teardown: with CUPTI released after
+    # each capture (TEARDOWN_CUPTI above), the CUDA runtime's own teardown
+    # at exit can block (seen once on the H100, after every check had
+    # passed); every subprocess has ended by now
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

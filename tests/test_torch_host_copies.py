@@ -69,9 +69,11 @@ PLAIN_COPIES = [
 # seam module -> (definitions that differ on purpose, definitions the
 # original has and the copy leaves out, definitions the copy adds)
 SEAMS = {
-    # a torch.profiler trace where the original takes a jax.profiler one
+    # a torch.profiler trace where the original takes a jax.profiler one,
+    # and the count of its device records against their enqueueing calls
     "utils/tracing.py": (
-        {"Tracer.start_jax_trace", "Tracer.stop_jax_trace"}, set(), set()),
+        {"Tracer.start_jax_trace", "Tracer.stop_jax_trace"}, set(),
+        {"read_trace", "device_counts"}),
     # the descent runs as PyTorch on the port's device, with no fallback to
     # numpy; a numpy-built forest for hosts without sklearn
     "scoring/forest.py": (
