@@ -1,0 +1,168 @@
+"""Simulated cohorts of the long-read and the single-cell configurations
+(BASELINE.json configs 4 and 5), written as sorted BAMs with the port's
+own simulator (sim.py).
+
+- long_read_cohort: PacBio CCS and ONT samples in turn, full-length
+  single-end reads over the gene models of the paired-end production
+  cohort (tools/refbuild/baseline.py::build_cohort: gene g at 50 kb + g x
+  300 kb, 2-7 exons), 5-30 reads a gene, each trimmed 0-20 bp at both ends
+  as the golden harness's long-read samples are
+  (tools/refbuild/compare.py::_long_read_sample); sample s draws from
+  random.Random(LONG_READ_SEED + s).
+- smartseq_cohort: single cells built as the golden smartseq8 cohort
+  builds its cells (tools/refbuild/compare.py::cohort_smartseq8): gene
+  models from random.Random(90), 2-5 exons from 100 kb on; cell c draws
+  from random.Random(91 + c), skips each gene with probability 0.55 and
+  otherwise simulates 8-30 read pairs of it.  At 25 genes, 8 cells and a
+  40 Mb chromosome it writes smartseq8's own bytes.
+
+Each sample is seeded on its own, so the bytes do not depend on how many
+processes write them.  Every cohort ends with the sentinel target the
+reference binary needs to close its last region (sim.sentinel_target).
+
+    python -m aletsch_tpu_torch.cohorts {long_read,smartseq} <dir> \\
+        <genes> <samples> [--jobs N]
+
+writes the BAMs and <dir>/bams.list and prints "<bams.list> <records>".
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import sys
+
+from .sim import map_to_genome, sentinel_target, simulate_pairs, write_bam
+
+LONG_READ_SEED = 4000
+LONG_READ_PROTOCOLS = ("pacbio_ccs", "ont")
+LONG_READ_CHRLEN = 630_000_000
+SMARTSEQ_CHRLEN = 100_000_000
+
+
+def baseline_gene_exons(g):
+    """Gene g of the production cohort's gene models
+    (tools/refbuild/baseline.py::build_cohort)."""
+    off = 50000 + g * 300000
+    rng = random.Random(g * 7 + 1)
+    exons, p = [], off
+    for _ in range(rng.randint(2, 7)):
+        el = rng.randint(120, 500)
+        exons.append((p, p + el))
+        p += el + rng.randint(500, 4000)
+    return exons
+
+
+def smartseq_gene_models(n_genes):
+    """The smart-seq cohort's gene models (compare.py::cohort_smartseq8)."""
+    rng0 = random.Random(90)
+    genes = []
+    pos = 100000
+    for _ in range(n_genes):
+        exons = []
+        p = pos
+        for _ in range(rng0.randint(2, 5)):
+            el = rng0.randint(150, 400)
+            exons.append((p, p + el))
+            p += el + rng0.randint(400, 2000)
+        genes.append(exons)
+        pos = p + rng0.randint(25000, 45000)
+    return genes
+
+
+def _long_read_sample(path, s, n_genes, chrlen):
+    rng = random.Random(LONG_READ_SEED + s)
+    recs = []
+    for g in range(n_genes):
+        exons = baseline_gene_exons(g)
+        strand = "+" if g % 2 == 0 else "-"
+        total = sum(b - a for a, b in exons)
+        for i in range(rng.randint(5, 30)):
+            trim_l = rng.randint(0, 20)
+            trim_r = rng.randint(0, 20)
+            gpos, cigar = map_to_genome(exons, trim_l,
+                                        total - trim_l - trim_r)
+            recs.append(dict(qname="s%dg%d.%d" % (s, g, i),
+                             flag=0x10 if strand == "-" else 0, pos=gpos,
+                             cigar=cigar, mpos=-1, isize=0, xs=strand))
+    n = len(recs)
+    recs, names, lengths = sentinel_target(recs, ("chr1",), (chrlen,))
+    write_bam(path, recs, names, lengths)
+    return n
+
+
+def _smartseq_cell(path, c, n_genes, chrlen):
+    rng = random.Random(91 + c)
+    recs = []
+    for gi, exons in enumerate(smartseq_gene_models(n_genes)):
+        if rng.random() < 0.55:      # sparse per-cell expression
+            continue
+        recs += simulate_pairs(exons, rng.randint(8, 30),
+                               "+" if gi % 2 == 0 else "-", rng,
+                               prefix="c%dg%d" % (c, gi))
+    n = len(recs)
+    recs, names, lengths = sentinel_target(recs, ("chr1",), (chrlen,))
+    write_bam(path, recs, names, lengths)
+    return n
+
+
+def _write(args):
+    kind, path, i, n_genes, chrlen = args
+    make = _long_read_sample if kind == "long_read" else _smartseq_cell
+    return make(path, i, n_genes, chrlen)
+
+
+def _cohort(kind, base, n_genes, n_samples, chrlen, protocols, name, jobs):
+    os.makedirs(base, exist_ok=True)
+    bams = [os.path.join(base, name % i) for i in range(n_samples)]
+    work = [(kind, p, i, n_genes, chrlen) for i, p in enumerate(bams)]
+    if jobs > 1 and n_samples > 1:
+        import multiprocessing
+        with multiprocessing.get_context("spawn").Pool(
+                min(jobs, n_samples)) as pool:
+            counts = pool.map(_write, work)
+    else:
+        counts = [_write(w) for w in work]
+    lst = os.path.join(base, "bams.list")
+    with open(lst, "w") as fh:
+        for i, b in enumerate(bams):
+            fh.write("%s %s.bai %s\n" % (b, b, protocols[i % len(protocols)]))
+    return lst, sum(counts)
+
+
+def long_read_cohort(base, n_genes, n_samples, jobs=1):
+    """(bams.list, records) of the long-read cohort (config 4) under base:
+    sample s is pacbio_ccs for even s and ont for odd s."""
+    return _cohort("long_read", base, n_genes, n_samples, LONG_READ_CHRLEN,
+                   LONG_READ_PROTOCOLS, "lr%d.bam", jobs)
+
+
+def smartseq_cohort(base, n_genes, n_cells, chrlen=SMARTSEQ_CHRLEN, jobs=1):
+    """(bams.list, records) of the smart-seq cohort (config 5) under base:
+    n_cells paired-end cells over n_genes gene models."""
+    return _cohort("smartseq", base, n_genes, n_cells, chrlen,
+                   ("paired_end",), "cell%d.bam", jobs)
+
+
+BUILDERS = {"long_read": long_read_cohort, "smartseq": smartseq_cohort}
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    jobs = 1
+    if "--jobs" in argv:
+        k = argv.index("--jobs")
+        jobs = int(argv[k + 1])
+        argv = argv[:k] + argv[k + 2:]
+    if len(argv) != 4 or argv[0] not in BUILDERS:
+        print("usage: python -m aletsch_tpu_torch.cohorts {%s} <dir> <genes> "
+              "<samples> [--jobs N]" % ",".join(BUILDERS), file=sys.stderr)
+        return 2
+    lst, n = BUILDERS[argv[0]](argv[1], int(argv[2]), int(argv[3]),
+                               jobs=jobs)
+    print(lst, n)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
-    python3 chip_smoke.py [--kernels-only | --phases 3e,3f,3g,3h]
+    python3 chip_smoke.py [--kernels-only | --phases 3e,3f,3g,3h,3i]
 
 Phases, each of which exits non-zero on failure:
 1. environment: the card's name and power limit, the kernel build from
@@ -109,30 +109,30 @@ Phases, each of which exits non-zero on failure:
    record for each kernel and copy queued; its device time and idle share
    (over the capture and over the subprocess's wall) are printed beside
    the counts;
-3b. step path: the port's CLI once more with ALETSCH_DEVICE_GREEDY=step
-   (one bottleneck launch per extraction instead of the drain), traced
-   as phase 3's; every output file byte-identical to the reference's, and
-   the bottleneck kernel must have carried every dispatch, with one kernel
-   record a launch in the trace;
+3b. step path: the port's CLI with ALETSCH_DEVICE_GREEDY=step (one
+   bottleneck launch per extraction instead of the drain) on the 200-gene
+   cohort of phases 3b to 3h (built, with its reference bytes, after phase
+   3's runs), traced as phase 3's; every output file byte-identical to the
+   reference's, and the bottleneck kernel must have carried every
+   dispatch, with one kernel record a launch in the trace;
 3c. the bridge, support and ladder stages on the card (--device_bridge on
-   --device_support on --device_ladder on beside the forced drain) on the
-   production cohort: in this process with every count reset (trust
-   mode), and once more in verify mode (ALETSCH_FUSED_TRUST=0: the host
-   ladder and drain are authoritative and every device decision is
-   compared with the host's).  Every output file byte-identical to the
-   reference's, every stage engaged, ladder_agree == ladder_total and
-   fused_agree == fused_total, the drain kernel launched on this path
-   too, and the ladder and bridge kernels launched once a dispatch of
-   their solvers, with their summed CUDA-event times (launch to
-   completion: the card's wait for each launch is in them).  In the
-   verify run the bridge's dispatches are watched (_BridgeRows):
-   histograms of its instances' live lengths and valid candidates a step
-   (the watcher's own seconds logged), and the staged rows of its first
-   64 dispatches, on which the kernel is then held to the plain form,
-   timed back to back (its device time), and profiled.  The
-   ladder's solve() clock is projected from phase 2c's dispatch first;
-   then the 200-gene cohort of phases 3d to 3h is built and its reference
-   bytes made;
+   --device_support on --device_ladder on beside the forced drain): in
+   this process with every count reset, on the production cohort in trust
+   mode, and on the 200-gene cohort in verify mode (ALETSCH_FUSED_TRUST=0:
+   the host ladder and drain are authoritative and every device decision
+   is compared with the host's; phase 3i holds verify mode at scale).
+   Every output file byte-identical to the reference's, every stage
+   engaged, ladder_agree == ladder_total and fused_agree == fused_total,
+   the drain kernel launched on this path too, and the ladder and bridge
+   kernels launched once a dispatch of their solvers, with their summed
+   CUDA-event times (launch to completion: the card's wait for each
+   launch is in them).  In the verify run the bridge's dispatches are
+   watched (_BridgeRows): histograms of its instances' live lengths and
+   valid candidates a step (the watcher's own seconds logged), and the
+   staged rows of its first 64 dispatches, on which the kernel is then
+   held to the plain form, timed back to back (its device time), and
+   profiled.  The ladder's solve() clock is projected from phase 2c's
+   dispatch first;
 3d. the CLI's defaults, where every device stage is on 'auto': the
    production cohort through python -m aletsch_tpu_torch with no
    --device_* flag, once as it is (its waves hold fewer groups than
@@ -159,17 +159,18 @@ Phases, each of which exits non-zero on failure:
    defaults (100 trees, max_depth 20), at 256, 4,096 and 65,536 rows of
    50 features: for each, the host clock of a call, its device time and
    device kernels (profiler), and _predict_numpy's time;
-3f. the production cohort through python -m aletsch_tpu_torch --jobs 2
+3f. the 200-gene cohort through python -m aletsch_tpu_torch --jobs 2
    with the drain forced (the other stages off), jax and aletsch_tpu
    unimportable in every process (a sitecustomize on the workers'
    PYTHONPATH, which also prints each process's launch counts at exit):
    every output byte-identical, and each shard worker must have launched
    the drain kernel; then a --shard 0 2 / --shard 1 2 / --merge_shards
-   round on the 200-gene cohort, byte-identical;
+   round, byte-identical;
 3g. the device trace: the forced drain on the 200-gene cohort through
    python -m aletsch_tpu_torch --jax_profile_dir: the bytes unchanged, one
    *.pt.trace.json, and in it exactly one drain kernel record a launch
-   and a device record for every kernel and copy queued;
+   and a device record for every kernel and copy queued (with --phases
+   only: the whole script holds phase 3's traced CLI run to the same);
 3h. the process group and the mesh: python -m aletsch_tpu_torch
    --jax_dist_launch 2 on the 200-gene cohort with the drain forced (two
    gloo ranks sharing the card; jax and aletsch_tpu unimportable, each
@@ -181,7 +182,28 @@ Phases, each of which exits non-zero on failure:
    and 8 shards all placed on cuda:0 -- an emulation of a mesh on one
    card, so labelled -- against the one-device step and the host oracle
    (exact on bottleneck, mx, sim, support; 1e-6 on ave, dev) with its host
-   clock; measure_scaling_shape([1]) as one JSON line with the card.
+   clock; measure_scaling_shape([1]) as one JSON line with the card;
+3i. the protocols: (a) the eight golden cohorts of
+   tools/refbuild/compare.py (built in a subprocess), each in this process
+   with the drain, bridge, support and ladder forced on the card at the
+   default --max_num_exons and ALETSCH_REF_QUIRKS=1: the sorted meta GTF
+   equal to the upstream binary's (tests/fixtures/goldens), one kernel
+   launch a dispatch for every solver, no bridge instance on the
+   single-end cohorts; (b) config 4: 2000 genes x
+   10 alternating PacBio CCS and ONT samples of full-length single-end
+   reads (aletsch_tpu_torch/cohorts.py), with the drain at --max_num_exons
+   8, the bridge, support and ladder forced, in trust and in verify mode,
+   against python -m aletsch_tpu --device_greedy off: byte-identical,
+   every drain and ladder decision agreeing, no bridge instance, the drain
+   kernel launched; (c) config 5: 64 smart-seq cells x 1000 genes, forced
+   as config 4 in trust mode, each staged support row held to the
+   export's gate and the groups counted by sample slots, then at the
+   CLI's defaults in a temporary directory of its own beside
+   ALETSCH_DEVICE=0: byte-identical, and what 'auto' asked and answered
+   for each stage, whether a calibration file appeared and its seconds.
+   Every run prints its wall beside the reference's and, for each stage,
+   what the card carried, its dispatches, kernel launches, host
+   refusals, solve() time and kernel-event time.
 
 The last lines are the card (nvidia-smi), one JSON line of the kernels
 and the JSON result line.  In the kernels line, "launches" counts each
@@ -209,9 +231,9 @@ a DP whose next step reads it.  With --kernels-only the
 script stops after phase 2e, prints no result line and exits 0: a short
 first check of a changed kernel, and a way to time two checkouts in turns
 on one card.  --phases runs phase 1 and then only the phases named (of
-3e, 3f, 3g and 3h) on the 200-gene cohort, with one reference and one forced
-port run to feed them, and prints no result line: a short check of those
-phases.  This script imports only the port; the JAX package runs
+3e, 3f, 3g, 3h and 3i): 3i on its own cohorts, the others on the 200-gene
+cohort, with one reference and one forced port run to feed them; it
+prints no result line: a short check of those phases.  This script imports only the port; the JAX package runs
 as a subprocess.  jax and aletsch_tpu are made unimportable first: the port
 never uses either.
 """
@@ -263,7 +285,7 @@ LADDER_ARGS = ["--device_ladder", "on"]
 # count of the data, the same on any device) times a dispatch's host clock
 # in phase 2c
 LADDER_DISPATCHES_PER_GENE = 731 / 200
-SMALL_GENES = 200       # the cohort of phases 3d to 3h
+SMALL_GENES = 200       # the cohort of phases 3b to 3h
 SPIN_CYCLES = 10_000_000        # ~5 ms of GPU clock: longer than any enqueue
 REPS = 25
 # Published peaks of one H100 SXM at its full power limit.  The 67 TFLOP/s
@@ -1769,18 +1791,25 @@ def _subprocess_wall(module, lst, out, extra, env):
     return time.perf_counter() - t0
 
 
-def _build_cohort(base, genes, samples, env):
-    """(bams.list, read pairs) of a simulated cohort under `base`."""
+def _build_cohort(base, genes, samples, env, kind="paired_end"):
+    """The bams.list of a cohort simulated under `base` in a subprocess:
+    config 3's paired-end samples (tools/refbuild/baseline.py), or config
+    4's ("long_read") or 5's ("smartseq") (aletsch_tpu_torch/cohorts.py,
+    a sample a process up to COHORT_JOBS)."""
     t0 = time.perf_counter()
+    if kind == "paired_end":
+        argv = ["-c", "import sys; from tools.refbuild.baseline import "
+                "build_cohort; print(*build_cohort(sys.argv[1], "
+                "int(sys.argv[2]), int(sys.argv[3])))"]
+    else:
+        argv = ["-m", "aletsch_tpu_torch.cohorts", kind]
     made = subprocess.run(
-        [sys.executable, "-c",
-         "import sys; from tools.refbuild.baseline import build_cohort; "
-         "print(*build_cohort(sys.argv[1], int(sys.argv[2]), "
-         "int(sys.argv[3])))", base, str(genes), str(samples)],
+        [sys.executable, *argv, base, str(genes), str(samples),
+         *(["--jobs", str(COHORT_JOBS)] if kind != "paired_end" else [])],
         cwd=REPO, env=env, check=True, timeout=600, capture_output=True,
         text=True).stdout.strip().splitlines()[-1].split()
-    log("cohort %d genes x %d samples, %d read pairs (%.1f s)"
-        % (genes, samples, int(made[1]), time.perf_counter() - t0))
+    log("%s cohort %d genes x %d samples, %d records (%.1f s)"
+        % (kind, genes, samples, int(made[1]), time.perf_counter() - t0))
     return made[0]
 
 
@@ -1862,7 +1891,7 @@ def _profiled_run(tag, card, run, kernel, launches):
            1.0 - busy_us / 1e6 / run["wall"]))
 
 
-def main_path(forms, smi, genes=GENES, samples=SAMPLES):
+def main_path(forms, smi, card, genes=GENES, samples=SAMPLES):
     """Reference and port CLIs on the production cohort.  Returns a dict
     of walls, the profiled run (_traced_cli: its device stats, launch
     counts and trace), and the step path's and the new path's results."""
@@ -1898,9 +1927,7 @@ def main_path(forms, smi, genes=GENES, samples=SAMPLES):
         _require_same(_outputs(out), ref, "the profiled port run")
         res["profiled"] = prof
         print(_top_records(prof["events"]), flush=True)
-        res["step"] = step_path(tmp, lst, ref, env)
-        res["new"] = new_path(tmp, lst, ref, forms, genes)
-        # the small cohort of phases 3d to 3h, and its reference bytes
+        # the small cohort of phases 3b to 3h, and its reference bytes
         small = _build_cohort(os.path.join(tmp, "cohort_small"), SMALL_GENES,
                               samples, env)
         out = os.path.join(tmp, "reference_small")
@@ -1908,12 +1935,14 @@ def main_path(forms, smi, genes=GENES, samples=SAMPLES):
         small_ref = _outputs(out)
         log("%d-gene cohort: reference subprocess wall %.2f s (%d files)"
             % (SMALL_GENES, wall, len(small_ref)))
+        res["step"] = step_path(tmp, small, small_ref, env)
+        res["new"] = new_path(tmp, lst, ref, small, small_ref, forms, genes)
         res["default"] = default_path(tmp, lst, ref, env, small, small_ref)
         res["scoring"] = scoring_path(tmp, os.path.join(tmp, "port1", "gtf"),
                                       samples, env)
-        res["jobs"] = jobs_path(tmp, lst, ref, env, small, small_ref)
-        res["trace"] = trace_path(tmp, small, small_ref, env)
+        res["jobs"] = jobs_path(tmp, small, small_ref, env)
         res["mesh"] = mesh_path(tmp, small, small_ref, env, smi)
+        res["protocols"] = protocols_path(tmp, env, card)
     res["walls"] = walls
     return res
 
@@ -2147,12 +2176,13 @@ def _bridge_dispatches(BT, sample, dev, tag, reps=5):
     return ms
 
 
-def new_path(tmp, lst, ref, forms, genes):
+def new_path(tmp, lst, ref, small, small_ref, forms, genes):
     """Phase 3c: the bridge, support and ladder stages through the port's
-    CLI on the card, on the production cohort, in trust and in verify
-    mode; in the verify run, the bridge's dispatches are watched
-    (_BridgeRows), and its kernel is then timed on the first 64
-    dispatches' rows."""
+    CLI on the card, on the production cohort in trust mode and on the
+    small cohort in verify mode (phase 3i's config 4 checks verify mode
+    decision for decision at scale); in the verify run, the bridge's
+    dispatches are watched (_BridgeRows), and its kernel is then timed on
+    the first 64 dispatches' rows."""
     ms = forms["ladder"][3]["host_ms"]
     projected = LADDER_DISPATCHES_PER_GENE * genes * ms / 1e3
     log("ladder projection: %.3f ms of host clock a 3-row dispatch (phase "
@@ -2161,16 +2191,19 @@ def new_path(tmp, lst, ref, forms, genes):
     res = {"projected": projected, "runs": []}
     extra = BRIDGE_SUPPORT_ARGS + LADDER_ARGS
     stages = ("bridge", "support", "ladder")
-    for trust in (True, False):
+    for trust, cohort, want, n_genes in ((True, lst, ref, genes),
+                                         (False, small, small_ref,
+                                          SMALL_GENES)):
         mode = "trust" if trust else "verify"
         out = os.path.join(tmp, "new_" + mode)
         if trust:
-            wall, st, n = _in_process_run(lst, out, extra, trust)
+            wall, st, n = _in_process_run(cohort, out, extra, trust)
         else:
             with _BridgeRows() as rows:
-                wall, st, n = _in_process_run(lst, out, extra, trust)
-        _require_same(_outputs(out), ref, "the new path's %s-mode run" % mode)
-        tag = "%d genes, %s, %s" % (genes, "+".join(stages), mode)
+                wall, st, n = _in_process_run(cohort, out, extra, trust)
+        _require_same(_outputs(out), want, "the new path's %s-mode run"
+                      % mode)
+        tag = "%d genes, %s, %s" % (n_genes, "+".join(stages), mode)
         _check_new_path(tag, st, n, stages, trust)
         res["runs"].append((tag, wall, st, n))
     rows.report()
@@ -2474,24 +2507,24 @@ def scoring_path(tmp, gtf_dir, samples, env):
 
 
 # ------------------------------------------------------------ phase 3f
-def jobs_path(tmp, lst, ref, env, small, small_ref):
-    """Phase 3f: --jobs 2 on the production cohort, then a --shard /
-    --merge_shards round on the small cohort."""
+def jobs_path(tmp, small, small_ref, env):
+    """Phase 3f on the small cohort: --jobs 2, then a --shard /
+    --merge_shards round."""
     t0 = time.perf_counter()
     cenv = _child_env(tmp, env)
     res = {}
     out = os.path.join(tmp, "jobs2")
     res["wall"], reports = _child_run(
-        ["aletsch_tpu_torch", "-i", lst, *_cli_args(out), *DEVICE_ARGS,
+        ["aletsch_tpu_torch", "-i", small, *_cli_args(out), *DEVICE_ARGS,
          "--jobs", "2"], cenv)
-    _require_same(_outputs(out), ref, "the --jobs 2 run")
+    _require_same(_outputs(out), small_ref, "the --jobs 2 run")
     workers = [c for role, c in reports if role == "shard"]
     require(len(workers) == 2 and all(c["drain"] > 0 for c in workers),
             "each --jobs worker must launch the drain kernel: %s" % reports)
     res["worker_launches"] = [c["drain"] for c in workers]
-    log("--jobs 2, drain forced: wall %.2f s; every "
+    log("--jobs 2, drain forced, %d-gene cohort: wall %.2f s; every "
         "output byte-identical (%d files); drain launches per worker %s"
-        % (res["wall"], len(ref), res["worker_launches"]))
+        % (SMALL_GENES, res["wall"], len(small_ref), res["worker_launches"]))
     dumps = [os.path.join(tmp, "shard%d.pkl" % h) for h in range(2)]
     procs = []
     t1 = time.perf_counter()
@@ -2633,11 +2666,307 @@ def mesh_path(tmp, small, small_ref, env, smi):
     return res
 
 
-def new_phases(phases, smi, genes=SMALL_GENES, samples=SAMPLES):
-    """--phases: one reference and one forced port run on the small
-    cohort, then the phases named, on it."""
+# ------------------------------------------------------------ phase 3i
+# every device stage forced at the CLI's default --max_num_exons (these
+# flags come after DEVICE_ARGS, so they override its)
+ALL_STAGES_ARGS = ["--max_num_exons", "10000"] + BRIDGE_SUPPORT_ARGS \
+    + LADDER_ARGS
+LONG_READ_GENES, LONG_READ_SAMPLES = 2000, 10     # config 4
+SMARTSEQ_GENES, SMARTSEQ_CELLS = 1000, 64         # config 5
+COHORT_JOBS = 8
+GOLDEN_DIR = os.path.join(REPO, "tests", "fixtures", "goldens")
+# golden cohorts with no paired-end sample: no bridging phase
+SINGLE_END_GOLDENS = ("ont2", "ont_compact2", "pacbio2")
+# The golden cohorts as tools/refbuild/compare.py simulates them for the
+# upstream binary, built in a subprocess (it imports the JAX package's
+# simulator): {name: bams.list}
+GOLDEN_BUILD = """import json, os, sys
+from tools.refbuild.compare import COHORTS, write_list
+made = {}
+for name in sorted(COHORTS):
+    d = os.path.join(sys.argv[1], name)
+    os.makedirs(d)
+    made[name] = write_list(d, *COHORTS[name](d))
+print(json.dumps(made))
+"""
+# stage -> (what the card carried, dispatches, kernel (None: plain
+# PyTorch), host refusals, solve()'s host clock in s, the kernel's CUDA
+# events in s (None: not kept))
+STAGE_KEYS = {
+    "drain": ("fused_graphs", "fused_dispatches", "drain", "host_graphs",
+              "fused_device_time", "fused_launch_ms"),
+    "bridge": ("device_bridge_insts", "bridge_dispatches", "bridge",
+               "host_bridge_insts", "bridge_device_time",
+               "bridge_kernel_time"),
+    "support": ("device_support_groups", "support_dispatches", None,
+                "host_support_groups", "support_device_time", None),
+    "ladder": ("device_ladder_graphs", "ladder_dispatches", "ladder",
+               "host_ladder_graphs", "ladder_device_time",
+               "ladder_kernel_time")}
+
+
+def _one_launch_a_dispatch(tag, st, n):
+    """Every solver's kernel launched once for each of its dispatches."""
+    for stage, (_, disp, kernel, *_) in STAGE_KEYS.items():
+        if kernel is not None:
+            require(n[kernel] == st.get(disp, 0),
+                    "%s: %d %s kernel launches for %d dispatches"
+                    % (tag, n[kernel], stage, st.get(disp, 0)))
+
+
+def _stage_lines(st, n):
+    """One line a stage: what the card carried, its dispatches and kernel
+    launches, the host's refusals, and the solve() and kernel times."""
+    lines = []
+    for stage, (done, disp, kernel, host, solve, ev) in STAGE_KEYS.items():
+        kt = st.get(ev, 0.0) if ev else None
+        if ev == "fused_launch_ms":
+            kt /= 1e3
+        lines.append(
+            "  %s: %d on the card in %d dispatches, %s kernel launches, %d "
+            "refused to the host; solve() %.3f s, kernel events %s"
+            % (stage, st.get(done, 0), st.get(disp, 0),
+               n[kernel] if kernel else "no (plain PyTorch)",
+               st.get(host, 0), st.get(solve, 0.0),
+               "%.4f s" % kt if kt is not None else "not kept"))
+    return "\n".join(lines)
+
+
+class _SupportSlots:
+    """While active, counts each support pause by (the group spans more
+    sample slots than the solver stages, its export reached the card), and
+    holds each staged row to the export's gate (native/core.cpp
+    GroupRun::support_export): a junction goes to the card only if it
+    spans at most the staged slots with non-negative integral weights
+    whose sum is exact in f32, so a row holds only such columns, no more
+    of them than the export counted, and a refused group's row is
+    empty."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from aletsch_tpu_torch.meta import native_core
+        self._orig = orig = native_core.support_export
+        self.seen = {}
+        self.bad = []
+
+        def export(gh, row):
+            v = orig(gh, row)
+            key = (len({bd.sp.sample_id for bd in gh.gv}) > row.shape[0],
+                   v > 0)
+            self.seen[key] = self.seen.get(key, 0) + 1
+            cols = row.any(axis=0)
+            if not ((row >= 0).all() and (row == np.floor(row)).all()
+                    and (row.astype(np.float64).sum(axis=0) < 2**24).all()
+                    and int(cols.sum()) <= max(v, 0)):
+                self.bad.append((v, int(cols.sum())))
+            return v
+        native_core.support_export = export
+        return self
+
+    def __exit__(self, *exc):
+        from aletsch_tpu_torch.meta import native_core
+        native_core.support_export = self._orig
+
+
+def _golden_cohorts(tmp, env, card):
+    """Phase 3i (a): the eight golden cohorts through the port's CLI in
+    this process with every stage forced on the card and
+    ALETSCH_REF_QUIRKS=1: the sorted meta GTF equal to the upstream
+    binary's, one kernel launch a dispatch."""
+    t0 = time.perf_counter()
+    made = json.loads(subprocess.run(
+        [sys.executable, "-c", GOLDEN_BUILD, os.path.join(tmp, "goldens")],
+        cwd=REPO, env=env, check=True, timeout=600, capture_output=True,
+        text=True).stdout.strip().splitlines()[-1])
+    log("the eight golden cohorts built in a subprocess (%.1f s)"
+        % (time.perf_counter() - t0))
+    totals = {}
+    for name, lst in sorted(made.items()):
+        out = os.path.join(tmp, "goldens", name, "port")
+        os.environ["ALETSCH_REF_QUIRKS"] = "1"
+        try:
+            wall, st, n = _in_process_run(lst, out, ALL_STAGES_ARGS, True)
+        finally:
+            os.environ.pop("ALETSCH_REF_QUIRKS", None)
+        got = _outputs(out)
+        with open(os.path.join(GOLDEN_DIR, name, "ref_meta.gtf"), "rb") as fh:
+            golden = fh.read()
+        require(sorted(got["meta.gtf"].splitlines(True))
+                == sorted(golden.splitlines(True)),
+                "golden %s: the port's meta GTF differs from the upstream "
+                "binary's" % name)
+        tag = "golden %s" % name
+        _one_launch_a_dispatch(tag, st, n)
+        require(st.get("ladder_agree", 0) == st.get("ladder_total", 0),
+                "%s: ladder decisions agree %s of %s"
+                % (tag, st.get("ladder_agree"), st.get("ladder_total")))
+        if name in SINGLE_END_GOLDENS:
+            require(st["device_bridge_insts"] == st["host_bridge_insts"]
+                    == st.get("bridge_dispatches", 0) == n["bridge"] == 0,
+                    "%s: a single-end cohort reached the bridge: %s"
+                    % (tag, st))
+        for k in ("device_ladder_graphs", "device_bridge_insts",
+                  "device_support_groups", "ladder_dispatches",
+                  "bridge_dispatches", "support_dispatches"):
+            totals[k] = totals.get(k, 0) + st.get(k, 0)
+        log("%s on %s (every stage forced, quirks mode, in process): wall "
+            "%.2f s; meta GTF == the upstream binary's (no wall of it in "
+            "this call)\n%s" % (tag, card, wall, _stage_lines(st, n)))
+    for k, v in totals.items():
+        require(v > 0, "the golden cohorts never engaged %s" % k)
+    return totals
+
+
+def _long_read_config(tmp, env, card):
+    """Phase 3i (b): config 4, PacBio CCS and ONT samples in turn, with the
+    drain (at --max_num_exons 8), bridge, support and ladder forced, in
+    trust and in verify mode, against the JAX package's host run."""
+    lst = _build_cohort(os.path.join(tmp, "config4"), LONG_READ_GENES,
+                        LONG_READ_SAMPLES, env, "long_read")
+    out = os.path.join(tmp, "config4_ref")
+    ref_wall = _subprocess_wall("aletsch_tpu", lst, out, HOST_ARGS, env)
+    ref = _outputs(out)
+    runs = []
+    for trust in (True, False):
+        mode = "trust" if trust else "verify"
+        out = os.path.join(tmp, "config4_" + mode)
+        wall, st, n = _in_process_run(lst, out, BRIDGE_SUPPORT_ARGS
+                                      + LADDER_ARGS, trust)
+        _require_same(_outputs(out), ref, "config 4's %s-mode run" % mode)
+        tag = "config 4 (%d genes x %d PacBio CCS / ONT samples), %s" % (
+            LONG_READ_GENES, LONG_READ_SAMPLES, mode)
+        _one_launch_a_dispatch(tag, st, n)
+        require(n["drain"] > 0 and st["fused_graphs"] > 0,
+                "%s: the drain kernel carried no graph" % tag)
+        require(st["fused_trust"] is trust and st["ladder_trust"] is trust,
+                "%s: trust %s / %s" % (tag, st["fused_trust"],
+                                       st["ladder_trust"]))
+        require(st["fused_agree"] == st["fused_total"] > 0,
+                "%s: drain agree %d of %d" % (tag, st["fused_agree"],
+                                              st["fused_total"]))
+        require(st["ladder_agree"] == st["ladder_total"] > 0,
+                "%s: ladder decisions agree %d of %d"
+                % (tag, st["ladder_agree"], st["ladder_total"]))
+        require(st["device_bridge_insts"] == st["host_bridge_insts"]
+                == st.get("bridge_dispatches", 0) == n["bridge"] == 0,
+                "%s: single-end samples reached the bridge" % tag)
+        log("%s on %s, in process: wall %.2f s against the JAX package's "
+            "%.2f s (a subprocess, the same call); %d files byte-identical; "
+            "drain agree %d of %d, ladder decisions agree %d of %d\n%s"
+            % (tag, card, wall, ref_wall, len(ref), st["fused_agree"],
+               st["fused_total"], st["ladder_agree"], st["ladder_total"],
+               _stage_lines(st, n)))
+        runs.append((mode, wall, st, n))
+    return {"ref_wall": ref_wall, "runs": runs}
+
+
+def _smartseq_config(tmp, env, card):
+    """Phase 3i (c): config 5, 64 smart-seq cells, with every stage forced
+    (trust mode) and at the CLI's defaults (in a temporary directory of its
+    own, so 'auto' finds no calibration) beside ALETSCH_DEVICE=0."""
+    from aletsch_tpu_torch.ops import crossover
+    lst = _build_cohort(os.path.join(tmp, "config5"), SMARTSEQ_GENES,
+                        SMARTSEQ_CELLS, env, "smartseq")
+    out = os.path.join(tmp, "config5_ref")
+    ref_wall = _subprocess_wall("aletsch_tpu", lst, out, HOST_ARGS, env)
+    ref = _outputs(out)
+    tag = "config 5 (%d smart-seq cells x %d genes)" % (SMARTSEQ_CELLS,
+                                                        SMARTSEQ_GENES)
+    out = os.path.join(tmp, "config5_forced")
+    with _SupportSlots() as slots:
+        wall, st, n = _in_process_run(lst, out, BRIDGE_SUPPORT_ARGS
+                                      + LADDER_ARGS, True)
+    _require_same(_outputs(out), ref, "config 5's forced run")
+    _one_launch_a_dispatch(tag, st, n)
+    for k in ("fused_graphs", "device_bridge_insts", "device_ladder_graphs"):
+        require(st.get(k, 0) > 0, "%s: %s is 0" % (tag, k))
+    require(st.get("ladder_agree") == st.get("ladder_total", 0) > 0,
+            "%s: ladder decisions agree %s of %s"
+            % (tag, st.get("ladder_agree"), st.get("ladder_total")))
+    require(not slots.bad, "%s: %d staged support rows break the export's "
+            "gate, (exported junctions, columns) %s"
+            % (tag, len(slots.bad), slots.bad[:8]))
+    require(sum(slots.seen.values()) == st["host_support_groups"]
+            + st["device_support_groups"], "%s: support pauses %s against "
+            "the stats' %d + %d" % (tag, slots.seen, st["host_support_groups"],
+                                    st["device_support_groups"]))
+    log("%s forced on %s, in process: wall %.2f s against the JAX package's "
+        "%.2f s (a subprocess, the same call); %d files byte-identical; "
+        "support groups: host %d, card %d; by (more than the staged sample "
+        "slots, exported): %s\n%s"
+        % (tag, card, wall, ref_wall, len(ref), st["host_support_groups"],
+           st["device_support_groups"], sorted(slots.seen.items()),
+           _stage_lines(st, n)))
+    res = {"ref_wall": ref_wall, "forced": (wall, st, n)}
+
+    # the defaults, in a temporary directory of its own
+    policy_tmp = os.path.join(tmp, "config5_policy_tmp")
+    os.makedirs(policy_tmp)
+    cuda_env = dict(env, ALETSCH_TORCH_DEVICE="cuda", TMPDIR=policy_tmp)
+    cache = os.path.join(policy_tmp, os.path.basename(crossover.cache_path()))
+    out = os.path.join(tmp, "config5_default")
+    res["wall_auto"], st = _default_run(lst, out, cuda_env)
+    _require_same(_outputs(out), ref, "config 5's default run")
+    out = os.path.join(tmp, "config5_off")
+    res["wall_off"], st_off = _default_run(lst, out,
+                                           dict(cuda_env, ALETSCH_DEVICE="0"))
+    _require_same(_outputs(out), ref, "config 5's run with ALETSCH_DEVICE=0")
+    require("auto" not in st_off and not any(
+        _sent(st_off, s) for s in STAGE_COUNTS),
+        "ALETSCH_DEVICE=0 asked the policy or reached the card: %s" % st_off)
+    auto = st.get("auto") or {"asked": {}, "calibrated": False,
+                              "measured_in_s": None}
+    cal = None
+    if os.path.isfile(cache):
+        with open(cache) as fh:
+            cal = json.load(fh)
+    require((cal is not None) == auto["calibrated"], "%s at the defaults: "
+            "calibrated %s, a calibration file %s"
+            % (tag, auto["calibrated"], cal is not None))
+    res["auto"], res["calibration_s"] = auto, cal and cal["measured_in_s"]
+    log("%s at the defaults on %s: wall %.2f s, with ALETSCH_DEVICE=0 "
+        "%.2f s, the JAX package's %.2f s; both byte-identical; a "
+        "calibration file %s"
+        % (tag, card, res["wall_auto"], res["wall_off"], ref_wall,
+           "appeared (measured in %.2f s)" % cal["measured_in_s"]
+           if cal else "did not appear"))
+    for stage in crossover.STAGES:
+        asked = auto["asked"].get(stage, {})
+        for k, ans in asked.items():
+            want = cal is not None and crossover.stage_wins(stage, int(k), cal)
+            require(ans == want, "'auto' answered %s for %s at %s instances; "
+                    "its fit says %s" % (ans, stage, k, want))
+        sub = crossover.stage_calibration(cal, stage) if cal else None
+        log("  'auto' %s: break-even %s; asked at %d sizes (%s), yes at %d; "
+            "instances sent to the card %d"
+            % (stage, sub.get("break_even_B") if sub else None, len(asked),
+               "%s to %s" % (min(asked), max(asked)) if asked else "none",
+               sum(asked.values()), _sent(st, stage)))
+    return res
+
+
+def protocols_path(tmp, env, card):
+    """Phase 3i: the golden cohorts, config 4 and config 5 on the card."""
+    t0 = time.perf_counter()
+    res = {"goldens": _golden_cohorts(tmp, env, card),
+           "config4": _long_read_config(tmp, env, card),
+           "config5": _smartseq_config(tmp, env, card)}
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 3i took %.1f s" % res["seconds"])
+    return res
+
+
+def new_phases(phases, smi, card, genes=SMALL_GENES, samples=SAMPLES):
+    """--phases: phase 3i if named, on its own cohorts; then, if any of 3e
+    to 3h is named, one reference and one forced port run on the small
+    cohort, and those phases on it."""
     env = dict(os.environ, PYTHONPATH=REPO)
     with tempfile.TemporaryDirectory(prefix="aletsch_chip_smoke_") as tmp:
+        if "3i" in phases:
+            protocols_path(tmp, env, card)
+        if not set(phases) - {"3i"}:
+            return
         lst = _build_cohort(os.path.join(tmp, "cohort"), genes, samples, env)
         out = os.path.join(tmp, "reference0")
         wall = _subprocess_wall("aletsch_tpu", lst, out, HOST_ARGS, env)
@@ -2652,14 +2981,14 @@ def new_phases(phases, smi, genes=SMALL_GENES, samples=SAMPLES):
         if "3e" in phases:
             scoring_path(tmp, os.path.join(out, "gtf"), samples, env)
         if "3f" in phases:
-            jobs_path(tmp, lst, ref, env, lst, ref)
+            jobs_path(tmp, lst, ref, env)
         if "3g" in phases:
             trace_path(tmp, lst, ref, env)
         if "3h" in phases:
             mesh_path(tmp, lst, ref, env, smi)
 
 
-NEW_PHASES = ("3e", "3f", "3g", "3h")
+NEW_PHASES = ("3e", "3f", "3g", "3h", "3i")
 
 
 def main(argv=None):
@@ -2689,20 +3018,25 @@ def main(argv=None):
     try:
         smi, name = environment()
         if phases:
-            new_phases(phases, smi)
+            new_phases(phases, smi, name)
             log("--phases %s: done in %.1f s; no result line"
                 % (",".join(phases), time.perf_counter() - t_start))
             return 0
+        log("phase 1 took %.1f s" % (time.perf_counter() - t_start))
+        t0 = time.perf_counter()
         err, times = kernel_vs_plain(dev)
         bn_err, pos_launches, bn_times = bottleneck_vs_plain(dev)
         forms = torch_forms_vs_oracles(dev)
         new_forms_vs_oracles(dev)
         policy_measurements(smi)
         wave_step_vs_oracle(dev)
+        log("phases 2 to 2e took %.1f s" % (time.perf_counter() - t0))
         if kernels_only:
             log("--kernels-only: stopping before the main path")
             return 0
-        res = main_path(forms, smi)
+        t0 = time.perf_counter()
+        res = main_path(forms, smi, name)
+        log("phases 3 to 3i took %.1f s" % (time.perf_counter() - t0))
         prof = res["profiled"]
         st, launches = prof["stats"], prof["stats"]["drain_launches"]
         log("device stats: %s" % json.dumps(st, sort_keys=True))
@@ -2770,19 +3104,28 @@ def main(argv=None):
                            % (nst["bridge_kernel_time"],
                               nst["bridge_kernel_time"] / d * 1e3)
                            if form == "bridge" else ""))
-        sc, jobs, tr = res["scoring"], res["jobs"], res["trace"]
+        sc, jobs = res["scoring"], res["jobs"]
         log("new phases on %s: scores CSV byte-identical over %d feature "
-            "rows; --jobs 2 wall %.2f s against the one-process forced "
-            "port's %.2f s, drain launches per worker %s; the trace holds "
-            "%d drain kernel records, one a launch (%d bytes)"
-            % (name, sc["csv_rows"], jobs["wall"], res["walls"]["port"][0],
-               jobs["worker_launches"], tr["drain_events"], tr["bytes"]))
+            "rows; --jobs 2 wall %.2f s on %d genes, drain launches per "
+            "worker %s" % (name, sc["csv_rows"], jobs["wall"], SMALL_GENES,
+                           jobs["worker_launches"]))
         ms = res["mesh"]
         log("phase 3h on %s: --jax_dist_launch 2 wall %.2f s, drain "
             "launches per rank %s; dryrun_multichip %.2f s; the sharded "
             "step's host clock (ms) by shards on one card %s"
             % (name, ms["dist_wall"], ms["rank_launches"], ms["dryrun_s"],
                {k: round(v, 3) for k, v in ms["step_ms"].items()}))
+        pr = res["protocols"]
+        c4, c5 = pr["config4"], pr["config5"]
+        log("phase 3i on %s: the eight golden cohorts == the upstream "
+            "binary's meta GTF with every stage forced (%s); config 4 walls "
+            "%s s (trust, verify) against the JAX package's %.2f s; config 5 "
+            "forced %.2f s, at the defaults %.2f s (calibration %s), with "
+            "ALETSCH_DEVICE=0 %.2f s, against the JAX package's %.2f s; %.1f s"
+            % (name, pr["goldens"], [round(r[1], 2) for r in c4["runs"]],
+               c4["ref_wall"], c5["forced"][0], c5["wall_auto"],
+               "%.2f s" % c5["calibration_s"] if c5["calibration_s"]
+               else "none", c5["wall_off"], c5["ref_wall"], pr["seconds"]))
     except SmokeFailure as e:
         print("chip_smoke: FAIL: %s" % e, file=sys.stderr)
         return 1
