@@ -1,27 +1,32 @@
-"""Simulated cohorts of the long-read and the single-cell configurations
-(BASELINE.json configs 4 and 5), written as sorted BAMs with the port's
-own simulator (sim.py).
+"""Simulated cohorts of BASELINE.json configs 3, 4 and 5, written as
+sorted BAMs with the port's own simulator (sim.py).
 
+- paired_end_cohort: the production cohort of config 3
+  (tools/refbuild/baseline.py::build_cohort): paired-end samples over one
+  630 Mb chromosome, gene g at 50 kb + g x 300 kb with 2-7 exons, 10-60
+  read pairs a gene; sample s draws from random.Random(seed + s), and at
+  the default seed (PAIRED_END_SEED, 77) it writes build_cohort's bytes.
 - long_read_cohort: PacBio CCS and ONT samples in turn, full-length
   single-end reads over the gene models of the paired-end production
   cohort (tools/refbuild/baseline.py::build_cohort: gene g at 50 kb + g x
   300 kb, 2-7 exons), 5-30 reads a gene, each trimmed 0-20 bp at both ends
   as the golden harness's long-read samples are
   (tools/refbuild/compare.py::_long_read_sample); sample s draws from
-  random.Random(LONG_READ_SEED + s).
+  random.Random(seed + s), LONG_READ_SEED (4000) by default.
 - smartseq_cohort: single cells built as the golden smartseq8 cohort
   builds its cells (tools/refbuild/compare.py::cohort_smartseq8): gene
   models from random.Random(90), 2-5 exons from 100 kb on; cell c draws
-  from random.Random(91 + c), skips each gene with probability 0.55 and
-  otherwise simulates 8-30 read pairs of it.  At 25 genes, 8 cells and a
-  40 Mb chromosome it writes smartseq8's own bytes.
+  from random.Random(seed + c), SMARTSEQ_SEED (91) by default, skips each
+  gene with probability 0.55 and otherwise simulates 8-30 read pairs of
+  it.  At 25 genes, 8 cells, a 40 Mb chromosome and the default seed it
+  writes smartseq8's own bytes.
 
 Each sample is seeded on its own, so the bytes do not depend on how many
 processes write them.  Every cohort ends with the sentinel target the
 reference binary needs to close its last region (sim.sentinel_target).
 
-    python -m aletsch_tpu_torch.cohorts {long_read,smartseq} <dir> \\
-        <genes> <samples> [--jobs N]
+    python -m aletsch_tpu_torch.cohorts {paired_end,long_read,smartseq} \\
+        <dir> <genes> <samples> [--jobs N] [--seed S]
 
 writes the BAMs and <dir>/bams.list and prints "<bams.list> <records>".
 """
@@ -34,9 +39,12 @@ import sys
 
 from .sim import map_to_genome, sentinel_target, simulate_pairs, write_bam
 
+PAIRED_END_SEED = 77
+PAIRED_END_CHRLEN = 630_000_000
 LONG_READ_SEED = 4000
 LONG_READ_PROTOCOLS = ("pacbio_ccs", "ont")
 LONG_READ_CHRLEN = 630_000_000
+SMARTSEQ_SEED = 91
 SMARTSEQ_CHRLEN = 100_000_000
 
 
@@ -70,8 +78,22 @@ def smartseq_gene_models(n_genes):
     return genes
 
 
-def _long_read_sample(path, s, n_genes, chrlen):
-    rng = random.Random(LONG_READ_SEED + s)
+def _paired_end_sample(path, s, n_genes, chrlen, seed):
+    rng = random.Random(seed + s)
+    recs = []
+    for g in range(n_genes):
+        depth = rng.randint(10, 60)
+        recs += simulate_pairs(baseline_gene_exons(g), depth,
+                               "+" if g % 2 == 0 else "-", rng,
+                               prefix="s%dg%d" % (s, g))
+    n = len(recs)
+    recs, names, lengths = sentinel_target(recs, ("chr1",), (chrlen,))
+    write_bam(path, recs, names, lengths)
+    return n
+
+
+def _long_read_sample(path, s, n_genes, chrlen, seed):
+    rng = random.Random(seed + s)
     recs = []
     for g in range(n_genes):
         exons = baseline_gene_exons(g)
@@ -91,8 +113,8 @@ def _long_read_sample(path, s, n_genes, chrlen):
     return n
 
 
-def _smartseq_cell(path, c, n_genes, chrlen):
-    rng = random.Random(91 + c)
+def _smartseq_cell(path, c, n_genes, chrlen, seed):
+    rng = random.Random(seed + c)
     recs = []
     for gi, exons in enumerate(smartseq_gene_models(n_genes)):
         if rng.random() < 0.55:      # sparse per-cell expression
@@ -106,16 +128,20 @@ def _smartseq_cell(path, c, n_genes, chrlen):
     return n
 
 
+_SAMPLE = {"paired_end": _paired_end_sample,
+           "long_read": _long_read_sample, "smartseq": _smartseq_cell}
+
+
 def _write(args):
-    kind, path, i, n_genes, chrlen = args
-    make = _long_read_sample if kind == "long_read" else _smartseq_cell
-    return make(path, i, n_genes, chrlen)
+    kind, *rest = args
+    return _SAMPLE[kind](*rest)
 
 
-def _cohort(kind, base, n_genes, n_samples, chrlen, protocols, name, jobs):
+def _cohort(kind, base, n_genes, n_samples, chrlen, protocols, name, jobs,
+            seed):
     os.makedirs(base, exist_ok=True)
     bams = [os.path.join(base, name % i) for i in range(n_samples)]
-    work = [(kind, p, i, n_genes, chrlen) for i, p in enumerate(bams)]
+    work = [(kind, p, i, n_genes, chrlen, seed) for i, p in enumerate(bams)]
     if jobs > 1 and n_samples > 1:
         import multiprocessing
         with multiprocessing.get_context("spawn").Pool(
@@ -130,36 +156,47 @@ def _cohort(kind, base, n_genes, n_samples, chrlen, protocols, name, jobs):
     return lst, sum(counts)
 
 
-def long_read_cohort(base, n_genes, n_samples, jobs=1):
+def paired_end_cohort(base, n_genes, n_samples, seed=PAIRED_END_SEED,
+                      jobs=1):
+    """(bams.list, records) of the paired-end production cohort (config 3)
+    under base, as tools/refbuild/baseline.py::build_cohort writes it."""
+    return _cohort("paired_end", base, n_genes, n_samples, PAIRED_END_CHRLEN,
+                   ("paired_end",), "s%d.bam", jobs, seed)
+
+
+def long_read_cohort(base, n_genes, n_samples, seed=LONG_READ_SEED, jobs=1):
     """(bams.list, records) of the long-read cohort (config 4) under base:
     sample s is pacbio_ccs for even s and ont for odd s."""
     return _cohort("long_read", base, n_genes, n_samples, LONG_READ_CHRLEN,
-                   LONG_READ_PROTOCOLS, "lr%d.bam", jobs)
+                   LONG_READ_PROTOCOLS, "lr%d.bam", jobs, seed)
 
 
-def smartseq_cohort(base, n_genes, n_cells, chrlen=SMARTSEQ_CHRLEN, jobs=1):
+def smartseq_cohort(base, n_genes, n_cells, chrlen=SMARTSEQ_CHRLEN,
+                    seed=SMARTSEQ_SEED, jobs=1):
     """(bams.list, records) of the smart-seq cohort (config 5) under base:
     n_cells paired-end cells over n_genes gene models."""
     return _cohort("smartseq", base, n_genes, n_cells, chrlen,
-                   ("paired_end",), "cell%d.bam", jobs)
+                   ("paired_end",), "cell%d.bam", jobs, seed)
 
 
-BUILDERS = {"long_read": long_read_cohort, "smartseq": smartseq_cohort}
+BUILDERS = {"paired_end": paired_end_cohort, "long_read": long_read_cohort,
+            "smartseq": smartseq_cohort}
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    jobs = 1
-    if "--jobs" in argv:
-        k = argv.index("--jobs")
-        jobs = int(argv[k + 1])
-        argv = argv[:k] + argv[k + 2:]
+    opts = {}
+    for flag in ("--jobs", "--seed"):
+        if flag in argv:
+            k = argv.index(flag)
+            opts[flag[2:]] = int(argv[k + 1])
+            argv = argv[:k] + argv[k + 2:]
     if len(argv) != 4 or argv[0] not in BUILDERS:
         print("usage: python -m aletsch_tpu_torch.cohorts {%s} <dir> <genes> "
-              "<samples> [--jobs N]" % ",".join(BUILDERS), file=sys.stderr)
+              "<samples> [--jobs N] [--seed S]" % ",".join(BUILDERS),
+              file=sys.stderr)
         return 2
-    lst, n = BUILDERS[argv[0]](argv[1], int(argv[2]), int(argv[3]),
-                               jobs=jobs)
+    lst, n = BUILDERS[argv[0]](argv[1], int(argv[2]), int(argv[3]), **opts)
     print(lst, n)
     return 0
 

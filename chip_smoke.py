@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
-    python3 chip_smoke.py [--kernels-only | --phases 3e,3f,3g,3h,3i]
+    python3 chip_smoke.py [--kernels-only | --phases 3e,3f,3g,3h,3i,3j]
 
 Phases, each of which exits non-zero on failure:
 1. environment: the card's name and power limit, the kernel build from
@@ -203,7 +203,14 @@ Phases, each of which exits non-zero on failure:
    for each stage, whether a calibration file appeared and its seconds.
    Every run prints its wall beside the reference's and, for each stage,
    what the card carried, its dispatches, kernel launches, host
-   refusals, solve() time and kernel-event time.
+   refusals, solve() time and kernel-event time;
+3j. the port's benchmark: bench_torch.py --config 3 --mode all --genes
+   200 --reps 1 as a subprocess, in a temporary directory of its own: it
+   must exit 0 with a compact JSON last line saying correct true, the
+   drain, bridge and ladder kernels launched once a dispatch, its traced
+   run's device records equal to the kernels, copies and memsets queued,
+   an idle share in [0, 1], and the card's name and power limit as
+   nvidia-smi gives them.
 
 The last lines are the card (nvidia-smi), one JSON line of the kernels
 and the JSON result line.  In the kernels line, "launches" counts each
@@ -231,11 +238,12 @@ a DP whose next step reads it.  With --kernels-only the
 script stops after phase 2e, prints no result line and exits 0: a short
 first check of a changed kernel, and a way to time two checkouts in turns
 on one card.  --phases runs phase 1 and then only the phases named (of
-3e, 3f, 3g, 3h and 3i): 3i on its own cohorts, the others on the 200-gene
-cohort, with one reference and one forced port run to feed them; it
-prints no result line: a short check of those phases.  This script imports only the port; the JAX package runs
-as a subprocess.  jax and aletsch_tpu are made unimportable first: the port
-never uses either.
+3e, 3f, 3g, 3h, 3i and 3j): 3i and 3j on their own cohorts, the others on
+the 200-gene cohort, with one reference and one forced port run to feed
+them; it prints no result line: a short check of those phases.  This
+script imports only the port; the JAX package runs as a subprocess.
+jax and aletsch_tpu are made unimportable first: the port never uses
+either.
 """
 
 import json
@@ -1943,6 +1951,7 @@ def main_path(forms, smi, card, genes=GENES, samples=SAMPLES):
         res["jobs"] = jobs_path(tmp, small, small_ref, env)
         res["mesh"] = mesh_path(tmp, small, small_ref, env, smi)
         res["protocols"] = protocols_path(tmp, env, card)
+        res["bench"] = bench_path(tmp, env, smi)
     res["walls"] = walls
     return res
 
@@ -2957,15 +2966,74 @@ def protocols_path(tmp, env, card):
     return res
 
 
+# ------------------------------------------------------------ phase 3j
+BENCH_STAGES = ("drain", "bridge", "ladder")
+
+
+def bench_path(tmp, env, smi):
+    """Phase 3j: the port's benchmark, bench_torch.py --config 3 --mode all
+    on the 200-gene cohort, one rep, as a subprocess with a temporary
+    directory of its own: exit 0, a JSON last line with correct true, one
+    kernel launch a dispatch of the drain, bridge and ladder, the trace's
+    device records equal to what was queued, an idle share in [0, 1], and
+    the card's own name and power limit."""
+    t0 = time.perf_counter()
+    detail = os.path.join(tmp, "bench_torch_detail.json")
+    bench_tmp = os.path.join(tmp, "bench_tmp")
+    os.makedirs(bench_tmp)
+    res = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bench_torch.py"), "--config",
+         "3", "--mode", "all", "--genes", str(SMALL_GENES), "--reps", "1",
+         "--detail", detail], cwd=REPO, capture_output=True, text=True,
+        env=dict(env, ALETSCH_TORCH_DEVICE="cuda", TMPDIR=bench_tmp),
+        timeout=900)
+    require(res.returncode == 0, "bench_torch.py exited %d: %s"
+            % (res.returncode, res.stderr[-2000:]))
+    last = res.stdout.strip().splitlines()[-1]
+    head = json.loads(last)
+    require(len(last) < 2000 and head["correct"] is True,
+            "bench_torch.py: %s" % last)
+    for stage in BENCH_STAGES:
+        st = head["stages"][stage]
+        require(st["launches"] == st["dispatches"] > 0, "bench_torch.py: %s "
+                "kernel launches %s for %s dispatches"
+                % (stage, st["launches"], st["dispatches"]))
+    with open(detail) as fh:
+        trace = json.load(fh)["cells"][0]["trace"]
+    require(trace["records"] == trace["counts"]["enqueued"] > 0,
+            "bench_torch.py's trace: %d device records for %d queued"
+            % (trace["records"], trace["counts"]["enqueued"]))
+    require(0.0 <= head["idle_share"] <= 1.0, "bench_torch.py: idle share "
+            "%s" % head["idle_share"])
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    dev = head["device"]
+    require(dev["kind"] == name and dev["power_limit"] == limit,
+            "bench_torch.py's device %s against nvidia-smi's %s" % (dev, smi))
+    secs = time.perf_counter() - t0
+    log("phase 3j on %s: bench_torch.py --config 3 --mode all --genes %d "
+        "--reps 1 (a subprocess): port %.2f s, reference %.2f s, "
+        "vs_baseline %.3f, correct, launches == dispatches %s, %d device "
+        "records for %d queued, idle share %.4f, import torch %.2f s; "
+        "%.1f s\n%s" % (smi, SMALL_GENES, head["wall_s"], head["ref_wall_s"],
+                        head["vs_baseline"], {s: head["stages"][s]["launches"]
+                                              for s in BENCH_STAGES},
+                        trace["records"], trace["counts"]["enqueued"],
+                        head["idle_share"], head["setup_s"]["import_torch"],
+                        secs, last))
+    return {"headline": head, "seconds": secs}
+
+
 def new_phases(phases, smi, card, genes=SMALL_GENES, samples=SAMPLES):
-    """--phases: phase 3i if named, on its own cohorts; then, if any of 3e
-    to 3h is named, one reference and one forced port run on the small
-    cohort, and those phases on it."""
+    """--phases: phases 3i and 3j if named, on their own cohorts; then, if
+    any of 3e to 3h is named, one reference and one forced port run on the
+    small cohort, and those phases on it."""
     env = dict(os.environ, PYTHONPATH=REPO)
     with tempfile.TemporaryDirectory(prefix="aletsch_chip_smoke_") as tmp:
         if "3i" in phases:
             protocols_path(tmp, env, card)
-        if not set(phases) - {"3i"}:
+        if "3j" in phases:
+            bench_path(tmp, env, smi)
+        if not set(phases) - {"3i", "3j"}:
             return
         lst = _build_cohort(os.path.join(tmp, "cohort"), genes, samples, env)
         out = os.path.join(tmp, "reference0")
@@ -2988,7 +3056,7 @@ def new_phases(phases, smi, card, genes=SMALL_GENES, samples=SAMPLES):
             mesh_path(tmp, lst, ref, env, smi)
 
 
-NEW_PHASES = ("3e", "3f", "3g", "3h", "3i")
+NEW_PHASES = ("3e", "3f", "3g", "3h", "3i", "3j")
 
 
 def main(argv=None):
@@ -3036,7 +3104,7 @@ def main(argv=None):
             return 0
         t0 = time.perf_counter()
         res = main_path(forms, smi, name)
-        log("phases 3 to 3i took %.1f s" % (time.perf_counter() - t0))
+        log("phases 3 to 3j took %.1f s" % (time.perf_counter() - t0))
         prof = res["profiled"]
         st, launches = prof["stats"], prof["stats"]["drain_launches"]
         log("device stats: %s" % json.dumps(st, sort_keys=True))

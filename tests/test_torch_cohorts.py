@@ -1,4 +1,4 @@
-"""The cohort builders of BASELINE.json configs 4 and 5
+"""The cohort builders of BASELINE.json configs 3, 4 and 5
 (aletsch_tpu_torch/cohorts.py), which chip_smoke.py's phase 3i runs at
 2000 genes x 10 long-read samples and at 64 cells x 1000 genes: the same
 BAM bytes on two calls with the same sizes, whatever the number of
@@ -115,3 +115,47 @@ def test_long_read_samples_hold_full_length_reads(tmp_path):
         assert sorted(per_gene) == list(range(genes))
         assert all(5 <= c <= 30 for c in per_gene.values())
     assert seen == n
+
+
+def test_paired_end_builder_writes_the_production_cohort(tmp_path):
+    """paired_end_cohort at its default seed writes the bytes of
+    tools/refbuild/baseline.py::build_cohort, whose cohort the JAX
+    package's bench runs."""
+    from tools.refbuild.baseline import build_cohort
+    want, n_want = build_cohort(str(tmp_path / "ref"), 5, 2)
+    got, n_got = cohorts.paired_end_cohort(str(tmp_path / "port"), 5, 2,
+                                           jobs=2)
+    assert n_got == n_want > 0
+    assert _bytes(got) == _bytes(want)
+
+
+# sha256 of the BAM bytes, in list order, of each builder at its default
+# seed, taken from the builders before they took a seed
+DEFAULT_BYTES = {
+    ("paired_end", 6, 2):
+        "188169105836f8cec2fc5e2c47b20f8703eaa2a8e8af3598d9c1b1b498ab58f3",
+    ("long_read", 6, 2):
+        "8de081d3a8abb7812a2cb6bbda0ecf2b3a8a7f263c01f95845b6865bd0f4553b",
+    ("smartseq", 10, 3):
+        "d2484e94e659482e9c3ad220737fee8d44fff194af6fbfb50d8382959ccaacfd"}
+
+
+def _sha(lst):
+    import hashlib
+    h = hashlib.sha256()
+    for _, _, _, data in _bytes(lst):
+        h.update(data)
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("kind,genes,samples", sorted(DEFAULT_BYTES))
+def test_builders_take_a_seed(kind, genes, samples, tmp_path):
+    build = cohorts.BUILDERS[kind]
+    default, _ = build(str(tmp_path / "default"), genes, samples)
+    assert _sha(default) == DEFAULT_BYTES[kind, genes, samples]
+    a, n_a = build(str(tmp_path / "a"), genes, samples, seed=1234)
+    b, n_b = build(str(tmp_path / "b"), genes, samples, seed=1234, jobs=2)
+    c, _ = build(str(tmp_path / "c"), genes, samples, seed=1235)
+    assert n_a == n_b > 0
+    assert _bytes(a) == _bytes(b)
+    assert _sha(a) != _sha(c) and _sha(a) != _sha(default)

@@ -445,9 +445,10 @@ def test_cli_runs_with_jax_blocked(greedy, stages, cohort, reference_off,
 
 
 def test_sources_never_import_the_jax_package():
-    """No source of the port and no line of chip_smoke.py imports jax or
-    anything of aletsch_tpu (the package without _torch), not even a module
-    there that does not import jax: the port keeps its own copy."""
+    """No source of the port and no line of chip_smoke.py or bench_torch.py
+    imports jax or anything of aletsch_tpu (the package without _torch),
+    not even a module there that does not import jax: the port keeps its
+    own copy."""
     pkg = os.path.join(REPO, "aletsch_tpu_torch")
     sources = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
                if f.endswith(".py")]
@@ -455,7 +456,8 @@ def test_sources_never_import_the_jax_package():
     for rel in ("ops/meshing.py", "parallel/jaxdist.py",
                 "parallel/scaling.py", "graft_entry.py", "io/bam_native.py"):
         assert os.path.join(pkg, rel) in sources, rel
-    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    sources += [os.path.join(REPO, "chip_smoke.py"),
+                os.path.join(REPO, "bench_torch.py")]
     banned = re.compile(
         r"^\s*(from|import)\s+(jax|aletsch_tpu)(\.|\s|$)"
         r"|import_module\(\s*['\"](jax|aletsch_tpu)['\".]"
