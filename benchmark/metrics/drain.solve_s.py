@@ -1,0 +1,8 @@
+"""drain.solve_s (s a pass; layer: drain solver): the drain solver's solve()
+host clock (copies, launch, sync) over a pass, from the per-pass change
+of device_wave.device_stats(); the mean over the passes where it
+dispatched."""
+
+from bmk.readers import solve_s
+
+read = solve_s("drain")

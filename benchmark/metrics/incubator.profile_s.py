@@ -1,0 +1,7 @@
+"""incubator.profile_s (s a pass; layer: incubator): the Incubator's
+profile-samples phase (meta/incubator.py, Tracer.phase_times, host
+clock), the mean over the window's passes."""
+
+from bmk.readers import phase_s
+
+read = phase_s("profile-samples")

@@ -1,0 +1,8 @@
+"""ladder.solve_s (s a pass; layer: ladder solver): the ladder solver's solve()
+host clock (copies, launch, sync) over a pass, from the per-pass change
+of device_wave.device_stats(); the mean over the passes where it
+dispatched."""
+
+from bmk.readers import solve_s
+
+read = solve_s("ladder")
