@@ -51,6 +51,8 @@ from __future__ import annotations
 import os
 import sys
 import threading
+import time
+from contextlib import nullcontext
 
 from ..device import ENV as DEVICE_ENV
 from ..ops import similarity as similarity_ops
@@ -318,8 +320,27 @@ def device_stats():
     return d
 
 
-def assemble_groups(asms, gvs, cfg):
-    """Device-batched equivalent of the serial `asmb.resolve(gv)` loop."""
+def _no_span(name, region=None):
+    return nullcontext()
+
+
+def _no_clock():
+    return 0.0
+
+
+def assemble_groups(asms, gvs, cfg, tracer=None):
+    """Device-batched equivalent of the serial `asmb.resolve(gv)` loop.
+
+    With the incubator's tracer it times the wave's parts as spans
+    (utils/tracing.py), inside the caller's span `wave` around this call:
+    `wave.start` (the runs' starts), each `wave.round` of the pause loop,
+    `wave.consume.<stage>` (the native consumes after a stage's solve(),
+    which resume the runs to their next pause) and `wave.finish`; and as
+    clocks only, summed a wave, `wave.export` (every export into staging
+    rows) and `wave.host_dp` (every native host DP of a refused instance).
+    Their seconds are disjoint: the bridge's consume span leaves out the
+    host DPs fed in among its consumes.  Without a tracer it times
+    nothing."""
     step = step_mode()
     if step:
         dev, export = _get_device(), native_core.greedy_export
@@ -332,15 +353,22 @@ def assemble_groups(asms, gvs, cfg):
     ladder_dev = ladder_enabled(cfg, len(asms))
     ldev = _get_ladder_device() if ladder_dev else None
     minv = int(getattr(cfg, "device_min_vertices", 16))
+    greedy = "wave.consume.step" if step else "wave.consume.drain"
+    if tracer is None:
+        span, clock = _no_span, _no_clock
+    else:
+        span, clock = tracer.span, time.perf_counter
+    t_exp = t_dp = 0.0      # seconds in exports and in host DPs
     runs = []               # (asmb, gv, handle-or-None) in group order
     active = []
-    for asmb, gv in zip(asms, gvs):
-        gh = native_core.start_group_device(asmb, gv, True, minv,
-                                            bridge_dev, support_dev,
-                                            ladder_dev)
-        runs.append((asmb, gv, gh))
-        if gh is not None and gh.paused:
-            active.append(gh)
+    with span("wave.start"):
+        for asmb, gv in zip(asms, gvs):
+            gh = native_core.start_group_device(asmb, gv, True, minv,
+                                                bridge_dev, support_dev,
+                                                ladder_dev)
+            runs.append((asmb, gv, gh))
+            if gh is not None and gh.paused:
+                active.append(gh)
     stats["waves"] += 1
 
     while active:
@@ -353,12 +381,13 @@ def assemble_groups(asms, gvs, cfg):
             if not l_exp:
                 return
             larm, ltgt, ndec, lstatus = ldev.solve(len(l_exp))
-            for i, g in enumerate(l_exp):
-                stats["device_ladder_graphs"] += 1
-                if native_core.ladder_consume(
-                        g, larm[i], ltgt[i], int(ndec[i]),
-                        int(lstatus[i]), _LADDER_TRUST):
-                    nxt.append(g)
+            with span("wave.consume.ladder"):
+                for i, g in enumerate(l_exp):
+                    stats["device_ladder_graphs"] += 1
+                    if native_core.ladder_consume(
+                            g, larm[i], ltgt[i], int(ndec[i]),
+                            int(lstatus[i]), _LADDER_TRUST):
+                        nxt.append(g)
             del l_exp[:]
 
         def flush_greedy():
@@ -366,19 +395,21 @@ def assemble_groups(asms, gvs, cfg):
                 return
             if step:
                 tables = dev.solve(len(g_exp))
-                for i, g in enumerate(g_exp):
-                    stats["device_steps"] += 1
-                    if native_core.greedy_step(g, tables[i]):
-                        nxt.append(g)
+                with span(greedy):
+                    for i, g in enumerate(g_exp):
+                        stats["device_steps"] += 1
+                        if native_core.greedy_step(g, tables[i]):
+                            nxt.append(g)
             else:
                 paths, ws, npaths = dev.solve(len(g_exp))
-                for i, g in enumerate(g_exp):
-                    if _FUSED_TRUST:
-                        stats["device_steps"] += int(npaths[i])
-                    if native_core.greedy_consume_fused(
-                            g, ws[i], paths[i], int(npaths[i]), dev.maxv,
-                            _FUSED_TRUST):
-                        nxt.append(g)
+                with span(greedy):
+                    for i, g in enumerate(g_exp):
+                        if _FUSED_TRUST:
+                            stats["device_steps"] += int(npaths[i])
+                        if native_core.greedy_consume_fused(
+                                g, ws[i], paths[i], int(npaths[i]),
+                                dev.maxv, _FUSED_TRUST):
+                            nxt.append(g)
             del g_exp[:]
 
         b_results = []      # per exported instance: (ostk, par, pix)
@@ -396,20 +427,30 @@ def assemble_groups(asms, gvs, cfg):
         def feed_bridges():
             # feed every queued instance back in flattened queue order
             # (the native consume order; see core.cpp bridge_export_at)
+            nonlocal t_dp
             flush_bridge_rows()
-            for g, plan in b_feed:
-                kind = g.pause_kind
-                for sl in plan:
-                    if sl >= 0:
-                        ostk, par, pix = b_results[sl]
-                        stats["device_bridge_insts"] += 1
-                        kind = native_core.bridge_step(g, ostk, par, pix,
-                                                       K, S)
-                    else:
-                        stats["host_bridge_insts"] += 1
-                        kind = native_core.bridge_solve_host(g)
-                if kind:
-                    nxt.append(g)
+            if not b_feed:
+                return
+            dp = 0.0
+            with span("wave.consume.bridge"):
+                for g, plan in b_feed:
+                    kind = g.pause_kind
+                    for sl in plan:
+                        if sl >= 0:
+                            ostk, par, pix = b_results[sl]
+                            stats["device_bridge_insts"] += 1
+                            kind = native_core.bridge_step(g, ostk, par,
+                                                           pix, K, S)
+                        else:
+                            stats["host_bridge_insts"] += 1
+                            t = clock()
+                            kind = native_core.bridge_solve_host(g)
+                            dp += clock() - t
+                    if kind:
+                        nxt.append(g)
+            if tracer is not None:
+                tracer.add_time("wave.consume.bridge", -dp)
+            t_dp += dp
             del b_feed[:]
             del b_results[:]
 
@@ -417,77 +458,102 @@ def assemble_groups(asms, gvs, cfg):
             if not s_exp:
                 return
             sums = sdev.solve(len(s_exp))
-            for i, g in enumerate(s_exp):
-                stats["device_support_groups"] += 1
-                if native_core.support_step(g, sums[i]):
-                    nxt.append(g)
+            with span("wave.consume.support"):
+                for i, g in enumerate(s_exp):
+                    stats["device_support_groups"] += 1
+                    if native_core.support_step(g, sums[i]):
+                        nxt.append(g)
             del s_exp[:]
 
-        for gh in active:
-            if gh.pause_kind == 4:
-                v = native_core.ladder_export(
-                    gh, ldev.row(len(l_exp)), ldev.maxv, ldev.maxe,
-                    ldev.maxh, ldev.maxl, ldev.dmax) if ladder_dev else 0
+        with span("wave.round"):
+            for gh in active:
+                if gh.pause_kind == 4:
+                    t = clock()
+                    v = native_core.ladder_export(
+                        gh, ldev.row(len(l_exp)), ldev.maxv, ldev.maxe,
+                        ldev.maxh, ldev.maxl, ldev.dmax) \
+                        if ladder_dev else 0
+                    t_exp += clock() - t
+                    if v <= 0:
+                        stats["host_ladder_graphs"] += 1
+                        t = clock()
+                        more = native_core.ladder_solve_host(gh)
+                        t_dp += clock() - t
+                        if more:
+                            nxt.append(gh)
+                        continue
+                    l_exp.append(gh)
+                    if len(l_exp) == ldev.batch:
+                        flush_ladder()
+                    continue
+                if gh.pause_kind == 3:
+                    t = clock()
+                    v = native_core.support_export(
+                        gh, sdev.row(len(s_exp))) if support_dev else 0
+                    t_exp += clock() - t
+                    if v <= 0:
+                        stats["host_support_groups"] += 1
+                        t = clock()
+                        more = native_core.support_solve_host(gh)
+                        t_dp += clock() - t
+                        if more:
+                            nxt.append(gh)
+                        continue
+                    s_exp.append(gh)
+                    if len(s_exp) == sdev.batch:
+                        flush_support()
+                    continue
+                if gh.pause_kind == 2:
+                    # one pause covers the whole bridging phase: export
+                    # every queued pier-DP instance now, feed them all
+                    # after the batched dispatch(es)
+                    plan = []
+                    for j in range(native_core.bridge_pending(gh)):
+                        t = clock()
+                        v = native_core.bridge_export_at(
+                            gh, j, bdev.row(len(b_cur)), K, S) \
+                            if bridge_dev else 0
+                        t_exp += clock() - t
+                        if v > 0:
+                            plan.append(len(b_results))
+                            b_cur.append(len(b_results))
+                            b_results.append(None)
+                            if len(b_cur) == bdev.batch:
+                                flush_bridge_rows()
+                        else:
+                            plan.append(-1)
+                    b_feed.append((gh, plan))
+                    continue
+                if gh.pause_kind != 1:
+                    raise RuntimeError("unexpected native pause kind %d"
+                                       % gh.pause_kind)
+                t = clock()
+                v = export(gh, dev.row(len(g_exp)), dev.maxv)
+                t_exp += clock() - t
                 if v <= 0:
-                    stats["host_ladder_graphs"] += 1
-                    if native_core.ladder_solve_host(gh):
+                    stats["host_graphs"] += 1
+                    t = clock()
+                    more = native_core.greedy_solve_host(gh)
+                    t_dp += clock() - t
+                    if more:
                         nxt.append(gh)
                     continue
-                l_exp.append(gh)
-                if len(l_exp) == ldev.batch:
-                    flush_ladder()
-                continue
-            if gh.pause_kind == 3:
-                v = native_core.support_export(
-                    gh, sdev.row(len(s_exp))) if support_dev else 0
-                if v <= 0:
-                    stats["host_support_groups"] += 1
-                    if native_core.support_solve_host(gh):
-                        nxt.append(gh)
-                    continue
-                s_exp.append(gh)
-                if len(s_exp) == sdev.batch:
-                    flush_support()
-                continue
-            if gh.pause_kind == 2:
-                # one pause covers the whole bridging phase: export every
-                # queued pier-DP instance now, feed them all after the
-                # batched dispatch(es)
-                plan = []
-                for j in range(native_core.bridge_pending(gh)):
-                    v = native_core.bridge_export_at(
-                        gh, j, bdev.row(len(b_cur)), K, S) \
-                        if bridge_dev else 0
-                    if v > 0:
-                        plan.append(len(b_results))
-                        b_cur.append(len(b_results))
-                        b_results.append(None)
-                        if len(b_cur) == bdev.batch:
-                            flush_bridge_rows()
-                    else:
-                        plan.append(-1)
-                b_feed.append((gh, plan))
-                continue
-            if gh.pause_kind != 1:
-                raise RuntimeError("unexpected native pause kind %d"
-                                   % gh.pause_kind)
-            if export(gh, dev.row(len(g_exp)), dev.maxv) <= 0:
-                stats["host_graphs"] += 1
-                if native_core.greedy_solve_host(gh):
-                    nxt.append(gh)
-                continue
-            g_exp.append(gh)
-            if len(g_exp) == dev.batch:
-                flush_greedy()
-        flush_greedy()
-        feed_bridges()
-        flush_support()
-        flush_ladder()
+                g_exp.append(gh)
+                if len(g_exp) == dev.batch:
+                    flush_greedy()
+            flush_greedy()
+            feed_bridges()
+            flush_support()
+            flush_ladder()
         active = nxt
 
     # replay in group order (determinism), host path where ineligible
-    for asmb, gv, gh in runs:
-        if gh is None:
-            asmb.resolve(gv)
-        else:
-            native_core.finish_group_device(gh)
+    with span("wave.finish"):
+        for asmb, gv, gh in runs:
+            if gh is None:
+                asmb.resolve(gv)
+            else:
+                native_core.finish_group_device(gh)
+    if tracer is not None:
+        tracer.add_time("wave.export", t_exp)
+        tracer.add_time("wave.host_dp", t_dp)

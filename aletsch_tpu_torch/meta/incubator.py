@@ -126,6 +126,11 @@ def _limit_blas_threads():
     _blas_limited = True
 
 
+def _region_id(chrm, rid):
+    """A region as the spans name it: "chrm:rid"."""
+    return "%s:%d" % (chrm, rid)
+
+
 class Incubator:
     def __init__(self, params, region_filter=None):
         self.params = params
@@ -465,7 +470,7 @@ class Incubator:
                         run_of[(rj, e)] = len(runs)
                     runs.append((e, seg))
         import threading
-        import time as _t
+        import time
         futures = {}          # run idx -> Future
         scan_results = {}     # (ri, entry) -> bundles
         state = {"next": 0, "out": 0}
@@ -509,10 +514,8 @@ class Incubator:
             f = futures.get(i)
             if f is None:
                 f = _submit(i)    # lookahead exhausted: force-submit
-            _t0 = _t.perf_counter()
-            res = f.result()
-            self.stats["scanwait_s"] = self.stats.get(
-                "scanwait_s", 0.0) + _t.perf_counter() - _t0
+            with tr.span("region.scan_wait"):
+                res = f.result()
             ee = runs[i][0]
             for (rj, rjd) in runs[i][1]:
                 scan_results[(rj, ee)] = res[rjd]
@@ -548,11 +551,18 @@ class Incubator:
             rs = self._region_finish(pr)
             tr.region_line(chrm, rid, nb, ng)
             if ck:
-                self._ckpt_save(ck, rs, {"bundles": nb, "groups": ng})
+                with tr.span("replay.fold", _region_id(chrm, rid), tile=True):
+                    self._ckpt_save(ck, rs, {"bundles": nb, "groups": ng})
 
-        def _replay_worker():
+        def _replay_worker(started):
+            ri = 0      # the region of `live` whose item comes next
+            # replay.idle, wave and replay.fold tile the thread's time, from
+            # the moment it was started
+            tr.tile_from(started)
             while True:
-                item = replay_q.get()
+                with tr.span("replay.idle", _region_id(*live[ri][:2])
+                             if ri < len(live) else None, tile=True):
+                    item = replay_q.get()
                 try:
                     if item is None:
                         return
@@ -561,15 +571,18 @@ class Incubator:
                         continue        # drain after a failure
                     if kind == "region":
                         _finish_one(payload)
+                        ri += 1
                     else:               # ordered checkpoint load
                         ck, chrm, rid, done = payload
                         done.append(self._ckpt_load(ck, chrm, rid, tr))
+                        ri += bool(done[0])     # else its region follows
                 except BaseException as e:   # propagate to the main thread
                     replay_err.append(e)
                 finally:
                     replay_q.task_done()
 
         worker = threading.Thread(target=_replay_worker,
+                                  args=(time.perf_counter(),),
                                   name="aletsch-replay", daemon=True)
         worker.start()
 
@@ -593,10 +606,12 @@ class Incubator:
                 # a corrupt checkpoint re-assembles from an inline scan
                 # (its scans were intentionally not prefetched)
                 results = None if has_ckpt else iter_region(ri)
-                pr = self._region_start(chrm, rid, results)
+                with tr.span("region.start", _region_id(chrm, rid)):
+                    pr = self._region_start(chrm, rid, results)
                 nb = self.stats["bundles"] - b0
                 ng = self.stats["groups"] - g0
-                replay_q.put(("region", (pr, ck, chrm, rid, nb, ng)))
+                with tr.span("region.backpressure", _region_id(chrm, rid)):
+                    replay_q.put(("region", (pr, ck, chrm, rid, nb, ng)))
             replay_q.join()
         finally:
             replay_q.put(None)
@@ -621,7 +636,8 @@ class Incubator:
         split shape for many-core hosts."""
         cfg = self.params[DEFAULT]
         if asms and device_wave.enabled(cfg, len(asms)):
-            device_wave.assemble_groups(asms, gvs, cfg)
+            with self.tracer.span("wave", tile=True):
+                device_wave.assemble_groups(asms, gvs, cfg, self.tracer)
             return
         if len(asms) > 1 and (os.cpu_count() or 1) > 1 \
                 and cfg.max_threads > 1:
@@ -701,14 +717,18 @@ class Incubator:
         results, when given, is the prefetched [((sid, tid), bundles)] list
         (resolve() pipelines the scans of upcoming regions on the thread
         pool while this region assembles)."""
-        return self._region_finish(self._region_start(chrm, rid, results))
+        with self.tracer.span("region.start", _region_id(chrm, rid)):
+            pending = self._region_start(chrm, rid, results)
+        return self._region_finish(pending)
 
     def _region_start(self, chrm, rid, results=None):
         """Front half of process_region: consume scans, group, cluster,
         and LAUNCH the wave's native assembly (async when eligible).
         Returns the pending-region record for _region_finish; with an
         async launch the native pool assembles this region while the
-        caller replays the previous one (GIL-free overlap)."""
+        caller replays the previous one (GIL-free overlap).  Its callers
+        open the span region.start around it; region.scan_wait (blocked
+        on a scan) and region.cluster (the strand loop) lie inside."""
         cfg = self.params[DEFAULT]
         grps = {s: BundleGroup(chrm, s, rid, cfg, self.sindex)
                 for s in STRANDS}
@@ -758,25 +778,27 @@ class Incubator:
         # (strand, group) — identical bytes to the per-strand loop.
         all_asms = []
         all_gvs = []
-        import time as _t
-        _tc0 = _t.perf_counter()
-        for s in STRANDS:
-            g = grps[s]
-            if imm_counts[s] >= 1:
-                g.num_assembled += imm_counts[s]
-                g.tmerge.add(ts_imm[s], TRANSCRIPT_COUNT_ADD_COVERAGE_ADD)
-            g.resolve()
-            self.tracer.group_line(chrm, s, rid, len(g.gset), len(g.gvv))
-            instance = g.num_assembled + 1
-            gi = STRANDS.index(s)
-            for gv_idx in g.gvv:
-                gv = [g.gset[j] for j in gv_idx]
-                if len(gv) == 0:
-                    continue
-                all_gvs.append(gv)
-                all_asms.append(Assembler(cfg, g.tmerge, rid, gi, instance))
-                instance += 1
-                self.stats["groups"] += 1
+        with self.tracer.span("region.cluster"):
+            for s in STRANDS:
+                g = grps[s]
+                if imm_counts[s] >= 1:
+                    g.num_assembled += imm_counts[s]
+                    g.tmerge.add(ts_imm[s],
+                                 TRANSCRIPT_COUNT_ADD_COVERAGE_ADD)
+                g.resolve()
+                self.tracer.group_line(chrm, s, rid, len(g.gset),
+                                       len(g.gvv))
+                instance = g.num_assembled + 1
+                gi = STRANDS.index(s)
+                for gv_idx in g.gvv:
+                    gv = [g.gset[j] for j in gv_idx]
+                    if len(gv) == 0:
+                        continue
+                    all_gvs.append(gv)
+                    all_asms.append(Assembler(cfg, g.tmerge, rid, gi,
+                                              instance))
+                    instance += 1
+                    self.stats["groups"] += 1
         job = None
         if all_asms and "_assemble_groups" not in self.__dict__ \
                 and not device_wave.enabled(cfg, len(all_asms)) \
@@ -789,28 +811,36 @@ class Incubator:
             nthreads = int(os.environ.get("ALETSCH_MT_THREADS") or
                            max(1, min(cfg.max_threads, os.cpu_count() or 1) - 1))
             job = launch_groups_native_mt(all_asms, all_gvs, True, nthreads)
-        self.stats["cluster_s"] = self.stats.get("cluster_s", 0.0) \
-            + _t.perf_counter() - _tc0
         return (chrm, rid, grps, all_asms, all_gvs, job)
 
     def _region_finish(self, pending):
         """Back half of process_region: join (or run) the wave's group
         assembly, then fold the region transcript sets into the global
         per-(chrm, strand) sets.  Replay is in (strand, group) order —
-        bytes identical to the unsplit process_region."""
+        bytes identical to the unsplit process_region.  Spans: wave
+        (_assemble_groups), then replay.fold."""
         chrm, rid, grps, all_asms, all_gvs, job = pending
-        if job is not None:
-            job.join()
-        else:
-            self._assemble_groups(all_asms, all_gvs)
-        region_sets = {}
-        for s in STRANDS:
-            g = grps[s]
-            # fold region transcripts into the global per-(chrm,strand) set
-            self.tts[(chrm, s)].add(g.tmerge, TRANSCRIPT_COUNT_ADD_COVERAGE_ADD)
-            region_sets[s] = g.tmerge
-            g.gset = []
-            g.clear()
+        tr = self.tracer
+        with tr.region(_region_id(chrm, rid)):
+            if job is not None:
+                job.join()
+            else:
+                self._assemble_groups(all_asms, all_gvs)
+            region_sets = {}
+            with tr.span("replay.fold", tile=True):
+                for s in STRANDS:
+                    g = grps[s]
+                    # fold region transcripts into the global
+                    # per-(chrm,strand) set
+                    self.tts[(chrm, s)].add(g.tmerge,
+                                            TRANSCRIPT_COUNT_ADD_COVERAGE_ADD)
+                    region_sets[s] = g.tmerge
+                    g.gset = []
+                    g.clear()
+                # the region's assemblers and bundles are released here,
+                # inside the span, not where its last reference drops
+                all_asms.clear()
+                all_gvs.clear()
         return region_sets
 
     # ---------------------------------------------------------------- output

@@ -363,11 +363,12 @@ class DeviceBridge:
         # the sync), s; bridge_kernel_time: launch to completion, s: CUDA
         # events on the stream around each launch, read at the dispatch's
         # sync (the kernel's device time and any wait of the card, after
-        # the copy in, for the launch to be queued);
+        # the copy in, for the launch to be queued); bridge_sync_time: the
+        # host blocked in the dispatch's sync, s;
         # bridge_launches: kernel launches of its dispatches
         self.stats = {"bridge_dispatches": 0, "bridge_instances": 0,
                       "bridge_device_time": 0.0, "bridge_kernel_time": 0.0,
-                      "bridge_launches": 0}
+                      "bridge_sync_time": 0.0, "bridge_launches": 0}
 
     def row(self, i):
         """Writable (P, Wt, Lv, tgt) slices for the native export."""
@@ -438,7 +439,9 @@ class DeviceBridge:
             launch(c_args, dev, stream=stream)
             end.record()
             host.copy_(buf, non_blocking=True)
+            t0 = time.perf_counter()
             stream.synchronize()
+            self.stats["bridge_sync_time"] += time.perf_counter() - t0
         self.stats["bridge_kernel_time"] += start.elapsed_time(end) / 1e3
         # one copy out of the pinned buffer, which the next dispatch
         # overwrites; the three outputs are views of it

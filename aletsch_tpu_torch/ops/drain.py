@@ -12,6 +12,7 @@ decomposition of each graph of a [B, V, V] topological-order batch.
   batch like greedy_fused._build; the CPU tests and the card's checks
   compare against it.
 - drain: a CPU tensor goes to drain_torch, a CUDA tensor to the kernel.
+- launch_events: CUDA events drain_cuda records around its launch alone.
 
 Inputs: W [B,V,V] f64|f32 (NEG where absent), P [B,V,V] i32 (in-edge list
 positions, -1 where absent), sink [B] i32 (topological position of the
@@ -21,12 +22,29 @@ Outputs: paths [B,maxp,V] u8, ws [B,maxp] W.dtype, npaths [B] i32.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
 from .constants import NEG, POS
 
 MAXV = 64       # the kernel's lane l owns vertices l and l + 32
+_EVENTS = threading.local()     # launch_events' pair, by thread
+
+
+@contextmanager
+def launch_events(start, end):
+    """While open, drain_cuda on this thread records the CUDA event start
+    just before its kernel's launch and end just after it, on the launch's
+    stream: the kernel's device time, as the bridge and ladder solvers
+    take theirs."""
+    _EVENTS.pair = (start, end)
+    try:
+        yield
+    finally:
+        _EVENTS.pair = None
 
 
 def _check(W, P, sink, scal, maxp):
@@ -72,11 +90,17 @@ def drain_cuda(W, P, sink, scal, maxp):
     lib = load_library()
     fn = lib.aletsch_drain_f64 if W.dtype == torch.float64 \
         else lib.aletsch_drain_f32
+    pair = getattr(_EVENTS, "pair", None)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(W.data_ptr(), P.data_ptr(), sink.data_ptr(),
-                 scal.data_ptr(), B, V, int(maxp), paths.data_ptr(),
-                 ws.data_ptr(), npaths.data_ptr(), stream)
+        stream = torch.cuda.current_stream(dev)
+        args = (W.data_ptr(), P.data_ptr(), sink.data_ptr(),
+                scal.data_ptr(), B, V, int(maxp), paths.data_ptr(),
+                ws.data_ptr(), npaths.data_ptr(), stream.cuda_stream)
+        if pair is not None:
+            pair[0].record(stream)
+        err = fn(*args)
+        if pair is not None:
+            pair[1].record(stream)
     if err != 0:
         raise RuntimeError("drain kernel launch failed: cudaError %d" % err)
     drain_cuda.launches += 1

@@ -76,13 +76,16 @@ class DeviceGreedyFused:
             torch.zeros(batch, dtype=torch.int32, pin_memory=pin),
             torch.zeros((batch, 3), dtype=torch.float64, pin_memory=pin))
         self.W, self.P, self.sink, self.scal = (t.numpy() for t in self._stage)
+        # on each card, the CUDA events around the drain's launch
+        self._events = {}
         # fused_device_time: host clock of solve() (copies, launch, sync), s;
-        # fused_launch_ms: CUDA events from just before the drain wrapper's
-        # call to the kernel's end, so the host's launch cost is counted
-        # whenever the stream was idle; not the kernel's device time
+        # fused_kernel_time: the kernel's device time (CUDA events around
+        # each launch alone, drain.launch_events, read at the dispatch's
+        # sync), s; fused_sync_time: the host blocked on the card in the
+        # dispatch's copies out, s
         self.stats = {"fused_dispatches": 0, "fused_graphs": 0,
                       "fused_device_time": 0.0, "fused_paths": 0,
-                      "fused_launch_ms": 0.0,
+                      "fused_kernel_time": 0.0, "fused_sync_time": 0.0,
                       "fused_form": "%s_f64" % self.device.type}
 
     def row(self, i):
@@ -112,19 +115,21 @@ class DeviceGreedyFused:
     def _drain(self, dev, args):
         """One drain launch on `dev` over staged rows; host outputs."""
         args = [a.to(dev, non_blocking=True) for a in args]
-        cuda = dev.type == "cuda"
-        if cuda:
-            stream = torch.cuda.current_stream(dev)
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record(stream)
-        paths, ws, npaths = drain_ops.drain(*args, self.maxp)
-        if cuda:
-            ev1.record(stream)
+        if dev.type != "cuda":
+            paths, ws, npaths = drain_ops.drain(*args, self.maxp)
+            return paths.view(torch.bool).numpy(), ws.numpy(), npaths.numpy()
+        events = self._events.get(dev)
+        if events is None:
+            events = self._events[dev] = tuple(
+                torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with drain_ops.launch_events(*events):
+            paths, ws, npaths = drain_ops.drain(*args, self.maxp)
+        t0 = time.perf_counter()
         paths = paths.view(torch.bool).cpu().numpy()
         ws = ws.cpu().numpy()
         npaths = npaths.cpu().numpy()
-        if cuda:
-            ev1.synchronize()
-            self.stats["fused_launch_ms"] += ev0.elapsed_time(ev1)
+        events[1].synchronize()
+        self.stats["fused_sync_time"] += time.perf_counter() - t0
+        self.stats["fused_kernel_time"] += \
+            events[0].elapsed_time(events[1]) / 1e3
         return paths, ws, npaths

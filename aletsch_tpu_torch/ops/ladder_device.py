@@ -118,10 +118,12 @@ class DeviceLadder:
         # ladder_device_time: host clock of solve() (the copies, the
         # kernel's launch or the plain lockstep loop, the sync), s;
         # ladder_kernel_time: the kernel's device time (CUDA events around
-        # each launch, read at the dispatch's sync), s
+        # each launch, read at the dispatch's sync), s; ladder_sync_time:
+        # the host blocked in the dispatch's sync, s
         self.stats = {"ladder_dispatches": 0, "ladder_graphs": 0,
                       "ladder_device_time": 0.0, "ladder_kernel_time": 0.0,
-                      "ladder_decisions": 0, "ladder_iterations": 0}
+                      "ladder_sync_time": 0.0, "ladder_decisions": 0,
+                      "ladder_iterations": 0}
 
     def row(self, i):
         """Writable slices for the native export, in the C ABI's order."""
@@ -207,7 +209,9 @@ class DeviceLadder:
                 lk.launch(c_args, dev)
                 end.record()
                 host.copy_(buf, non_blocking=True)
+                t0 = time.perf_counter()
                 torch.cuda.current_stream(dev).synchronize()
+                self.stats["ladder_sync_time"] += time.perf_counter() - t0
             self.stats["ladder_kernel_time"] += \
                 start.elapsed_time(end) / 1e3
             h = host.numpy()

@@ -5,6 +5,10 @@ phase boundaries (meta/incubator.cc:73-78), an RSS probe `check_memory_usage`
 (meta/generator.cc:27-31), and per-group stats summaries gated on `verbose`
 (meta/bundle_group.cc:360-393).  This module re-expresses that as a Tracer
 with nested phase timers and counters, plus an optional device trace.
+Spans (Tracer.span) time the layers inside a phase, on whichever thread
+runs them: their seconds go into the same phase_times, and while a
+torch.profiler capture is active each is also a record_function range, on
+the trace's clock beside the card's records.
 Counterpart of aletsch_tpu/utils/tracing.py: where the JAX package captures
 a jax.profiler trace, the port captures a torch.profiler one into the same
 --jax_profile_dir (the flag keeps its name; the *.pt.trace.json file opens
@@ -18,8 +22,10 @@ Verbose levels follow the reference convention (util/parameters.cc:28):
 from __future__ import annotations
 
 import json
+import os
 import re
 import sys
+import threading
 import time
 from contextlib import contextmanager
 
@@ -27,6 +33,16 @@ from contextlib import contextmanager
 # the runtime and driver calls that queue one record of it each
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _ENQUEUE = re.compile(r"^cu(da)?(Launch\w*Kernel\w*|Memcpy\w*|Memset\w*)$")
+
+
+def _profiler():
+    """torch's profiler module while a torch.profiler capture is active in
+    this process (the profiler's own flag, on every thread), else None;
+    nothing imports torch to answer it."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return prof
+    return None
 
 
 def rss_mb():
@@ -45,6 +61,32 @@ def read_trace(path):
     """The event list of a *.pt.trace.json file."""
     with open(path) as fh:
         return json.load(fh)["traceEvents"]
+
+
+def add_regions(events, entered):
+    """Write into the args of each span's range the region it ran for
+    (args["region"], "chrm:rid").  entered is [(thread id, span name,
+    region)] in the order the spans were entered; a thread's ranges of
+    one name are matched to its entries of that name in order of start.
+    Where the two counts differ (a range the profiler dropped), that
+    thread's ranges of that name are left as they are."""
+    want = {}
+    for tid, name, region in entered:
+        want.setdefault((tid, name), []).append(region)
+    got = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+            key = (e.get("tid"), e.get("name"))
+            if key in want:
+                got.setdefault(key, []).append(e)
+    for key, ranges in got.items():
+        regions = want[key]
+        if len(ranges) != len(regions):
+            continue
+        ranges.sort(key=lambda e: float(e["ts"]))
+        for e, region in zip(ranges, regions):
+            if region is not None:
+                e.setdefault("args", {})["region"] = region
 
 
 def device_counts(events):
@@ -74,6 +116,13 @@ class Tracer:
         self.t0 = time.perf_counter()
         self._jax_dir = jax_profile_dir
         self._jax_active = False
+        # span name -> the span or phase it first opened inside (summary)
+        self.span_parent = {}
+        self._open = []             # the phases open, outermost first
+        self._local = threading.local()     # a thread's open spans
+        # (thread id, span, region) of each span entered under the port's
+        # own capture, for the regions in its trace (add_regions)
+        self._entered = []
 
     # ----------------------------------------------------------------- phases
     @contextmanager
@@ -82,9 +131,15 @@ class Tracer:
         c = time.process_time()
         if self.verbose >= 1:
             print("[aletsch] %s ..." % name, file=self.stream)
+        prof = _profiler()
+        rf = prof.record_function(name).__enter__() if prof else None
+        self._open.append(name)
         try:
             yield
         finally:
+            self._open.pop()
+            if rf is not None:
+                rf.__exit__(None, None, None)
             dt = time.perf_counter() - t
             dc = time.process_time() - c
             self.phase_times[name] = self.phase_times.get(name, 0.0) + dt
@@ -93,6 +148,86 @@ class Tracer:
                       "rss %.0f MB)"
                       % (name, dt, dc, dc / dt if dt > 0 else 0.0,
                          rss_mb()), file=self.stream)
+
+    # ------------------------------------------------------------------ spans
+    def _stack(self):
+        """This thread's open spans and regions: [(name, region)]."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _nest(self, name, stack):
+        """Note what the span `name` first opened inside: the innermost
+        span open on this thread, else the innermost phase open."""
+        if name not in self.span_parent:
+            parent = next((n for n, _ in reversed(stack) if n is not None),
+                          None)
+            if parent is None:      # a slice: phases close on other threads
+                parent = (self._open[-1:] or [None])[0]
+            self.span_parent[name] = parent
+
+    @contextmanager
+    def span(self, name, region=None, tile=False):
+        """Time a layer inside a phase: its wall seconds are added to
+        phase_times[name].  While a torch.profiler capture is active it is
+        also a record_function range; region ("chrm:rid"; None: the
+        region of the span or region() it is opened in) joins the ranges
+        one region leaves on the pipeline's threads, and lands in the
+        range's args in the port's own trace.  tile: the clock starts
+        where the span this thread closed last ended, so that spans opened
+        one after another with it leave no time of the thread out (the
+        interpreter lock and the collector take the thread between any
+        two statements); the range still starts here.  Never through
+        phase(), which a caller may wrap."""
+        stack = self._stack()
+        self._nest(name, stack)
+        if region is None and stack:
+            region = stack[-1][1]
+        stack.append((name, region))
+        # the clock holds the range's own entry and exit: a thread can wait
+        # there for the interpreter lock, and that time is the span's
+        t = time.perf_counter()
+        if tile:
+            t = getattr(self._local, "closed", t)
+        prof = _profiler()
+        rf = None
+        if prof is not None:
+            if self._jax_active:
+                self._entered.append((threading.get_native_id(), name,
+                                      region))
+            rf = prof.record_function(name).__enter__()
+        try:
+            yield
+        finally:
+            if rf is not None:
+                rf.__exit__(None, None, None)
+            stack.pop()
+            self._local.closed = end = time.perf_counter()
+            self.phase_times[name] = self.phase_times.get(name, 0.0) \
+                + end - t
+
+    def tile_from(self, t):
+        """The next span this thread opens with tile starts its clock at t,
+        a time.perf_counter() reading, as if a span had closed then."""
+        self._local.closed = t
+
+    @contextmanager
+    def region(self, region):
+        """The spans this thread opens inside carry `region`; no span of
+        its own."""
+        stack = self._stack()
+        stack.append((None, region))
+        try:
+            yield
+        finally:
+            stack.pop()
+
+    def add_time(self, name, seconds):
+        """Add seconds to a span that is a clock only (summed by its
+        caller, never a range), nested in the span open on this thread."""
+        self._nest(name, self._stack())
+        self.phase_times[name] = self.phase_times.get(name, 0.0) + seconds
 
     # --------------------------------------------------------------- counters
     def add(self, key, n=1):
@@ -117,9 +252,19 @@ class Tracer:
         total = time.perf_counter() - self.t0
         print("[aletsch] total %.2fs, peak-phase breakdown:" % total,
               file=self.stream)
-        for name, dt in sorted(self.phase_times.items(),
-                               key=lambda kv: -kv[1]):
-            print("[aletsch]   %-12s %6.2fs" % (name, dt), file=self.stream)
+        inside = {}
+        for name, parent in self.span_parent.items():
+            inside.setdefault(parent, []).append(name)
+
+        def show(names, depth):
+            for name in sorted(names, key=lambda n: -self.phase_times[n]):
+                print("[aletsch]   %-*s %6.2fs" % (
+                    12 + 2 * depth, "  " * depth + name,
+                    self.phase_times[name]), file=self.stream)
+                show(inside.get(name, ()), depth + 1)
+
+        show([n for n in self.phase_times
+              if self.span_parent.get(n) is None], 0)
         bundles = self.counters.get("bundles", 0)
         if bundles and total > 0:
             print("[aletsch] %d bundles -> %.1f bundles/s" %
@@ -129,19 +274,19 @@ class Tracer:
     def start_jax_trace(self):
         """Optional device trace: a torch.profiler capture of the host's
         activity, and of the card's where the port's device is a card,
-        written on stop by tensorboard_trace_handler into the directory
-        as <host>_<pid>.<ns>.pt.trace.json.  No shapes and no stacks, to
-        keep the file small.  On the CPU device no CUDA context is made.
-        On a card the trace holds a device record of every kernel and copy
-        queued in the capture (device_counts), as the one capture of a
-        CLI process: a process that captures again after tens of seconds
+        written on stop into the directory as
+        <host>_<pid>.<ns>.pt.trace.json (_write_trace).  No shapes and no
+        stacks, to keep the file small.  On the CPU device no CUDA context
+        is made.  On a card the trace holds a device record of every kernel
+        and copy queued in the capture (device_counts), as the one capture
+        of a CLI process: a process that captures again after tens of seconds
         of other work gets some of its device records placed outside the
         capture's window by the profiler, which drops them (PERF.md).
         torch is imported here only.  A failure propagates."""
         if not self._jax_dir:
             return
         from torch.profiler import (ProfilerActivity, _ExperimentalConfig,
-                                    profile, tensorboard_trace_handler)
+                                    profile)
 
         from ..device import device as port_device
         activities = [ProfilerActivity.CPU]
@@ -149,11 +294,28 @@ class Tracer:
             activities.append(ProfilerActivity.CUDA)
         # the region waves run on pool threads: record every thread's ops
         prof = profile(activities=activities, on_trace_ready=
-                       tensorboard_trace_handler(self._jax_dir),
+                       self._write_trace,
                        experimental_config=_ExperimentalConfig(
                            profile_all_threads=True))
         prof.start()
         self._jax_active = prof
+
+    def _write_trace(self, prof):
+        """The capture's trace file, named as tensorboard_trace_handler
+        names it, with the region of each span in its range's args
+        (add_regions)."""
+        import socket
+        os.makedirs(self._jax_dir, exist_ok=True)
+        path = os.path.join(self._jax_dir, "%s_%d.%d.pt.trace.json" % (
+            socket.gethostname(), os.getpid(), time.time_ns()))
+        prof.export_chrome_trace(path)
+        entered, self._entered = self._entered, []
+        if entered:
+            with open(path) as fh:
+                trace = json.load(fh)
+            add_regions(trace["traceEvents"], entered)
+            with open(path, "w") as fh:
+                json.dump(trace, fh)
 
     def stop_jax_trace(self):
         """Stop the capture start_jax_trace began (self._jax_active holds

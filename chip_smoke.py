@@ -2703,7 +2703,7 @@ print(json.dumps(made))
 # events in s (None: not kept))
 STAGE_KEYS = {
     "drain": ("fused_graphs", "fused_dispatches", "drain", "host_graphs",
-              "fused_device_time", "fused_launch_ms"),
+              "fused_device_time", "fused_kernel_time"),
     "bridge": ("device_bridge_insts", "bridge_dispatches", "bridge",
                "host_bridge_insts", "bridge_device_time",
                "bridge_kernel_time"),
@@ -2729,8 +2729,6 @@ def _stage_lines(st, n):
     lines = []
     for stage, (done, disp, kernel, host, solve, ev) in STAGE_KEYS.items():
         kt = st.get(ev, 0.0) if ev else None
-        if ev == "fused_launch_ms":
-            kt /= 1e3
         lines.append(
             "  %s: %d on the card in %d dispatches, %s kernel launches, %d "
             "refused to the host; solve() %.3f s, kernel events %s"
@@ -3120,9 +3118,9 @@ def main(argv=None):
                 % (st["fused_agree"], st["fused_total"]))
         _profiled_run("port", name, prof, "drain", launches)
         log("solve() host clock %.3f s over %d launches, %d graphs; "
-            "wrapper-call-to-kernel-end events %.2f ms (host launch cost "
-            "included)" % (st["fused_device_time"], launches,
-                           st["fused_graphs"], st["fused_launch_ms"]))
+            "kernel events %.2f ms, the host blocked on the card %.3f s"
+            % (st["fused_device_time"], launches, st["fused_graphs"],
+               st["fused_kernel_time"] * 1e3, st["fused_sync_time"]))
         step = res["step"]
         sst = step["stats"]
         step_launches = sst["bottleneck_launches"]

@@ -70,10 +70,16 @@ PLAIN_COPIES = [
 # original has and the copy leaves out, definitions the copy adds)
 SEAMS = {
     # a torch.profiler trace where the original takes a jax.profiler one,
-    # and the count of its device records against their enqueueing calls
+    # and the count of its device records against their enqueueing calls;
+    # spans inside the phases, a record_function range each under a
+    # capture, with their regions in the trace's args
     "utils/tracing.py": (
-        {"Tracer.start_jax_trace", "Tracer.stop_jax_trace"}, set(),
-        {"read_trace", "device_counts"}),
+        {"Tracer.start_jax_trace", "Tracer.stop_jax_trace",
+         "Tracer.__init__", "Tracer.phase", "Tracer.summary"}, set(),
+        {"read_trace", "device_counts", "_profiler", "add_regions",
+         "Tracer._stack", "Tracer._nest", "Tracer.span", "Tracer.region",
+         "Tracer.add_time", "Tracer.tile_from", "Tracer.summary.show",
+         "Tracer._write_trace"}),
     # the descent runs as PyTorch on the port's device, with no fallback to
     # numpy; a numpy-built forest for hosts without sklearn
     "scoring/forest.py": (
@@ -95,7 +101,15 @@ SEAMS = {
     # 'auto' asks similarity's own fit at the region's size
     "meta/bundle_group.py": (
         {"BundleGroup._use_device_similarity"}, set(), set()),
-    "meta/incubator.py": ({"Incubator._assemble_groups"}, set(), set()),
+    # the device wave takes the tracer; spans of the region pipeline on
+    # its two threads (utils/tracing.py::Tracer.span)
+    "meta/incubator.py": (
+        {"Incubator._assemble_groups", "Incubator._run_region_pipeline",
+         "Incubator._run_region_pipeline.get_result",
+         "Incubator._run_region_pipeline._finish_one",
+         "Incubator._run_region_pipeline._replay_worker",
+         "Incubator.process_region", "Incubator._region_start",
+         "Incubator._region_finish"}, set(), {"_region_id"}),
     "__main__.py": ({"main"}, set(), set()),
     # the port builds its own library, under a lock and renamed into place
     # (tests/test_torch_native_build.py), and loads it once a process
