@@ -48,11 +48,14 @@ build its solver raises.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import sys
 import threading
 import time
 from contextlib import nullcontext
+
+import numpy as np
 
 from ..device import ENV as DEVICE_ENV
 from ..ops import similarity as similarity_ops
@@ -69,7 +72,17 @@ stats = {
     "host_ladder_graphs": 0,    # ladder-paused graphs solved on host
     "device_ladder_graphs": 0,  # ladder decision logs consumed from device
     "waves": 0,
+    # the wave pool (csrc/wave_pool.cpp): batches of two or more runs
+    # advanced on it and the runs in them; batches run on the calling
+    # thread (of one run, or every batch where the pool has no thread: -t
+    # 1); runs launched from the main thread before their wave
+    # (meta/incubator.py _region_start)
+    "pool_calls": 0,
+    "pool_handles": 0,
+    "inline_advances": 0,
+    "prestarted_groups": 0,
 }
+_STATS_LOCK = threading.Lock()  # the main thread counts launches
 
 _DEVICE = None
 _FUSED = None
@@ -317,7 +330,310 @@ def device_stats():
         d["ladder_trust"] = bool(_LADDER_TRUST)
         d["ladder_agree"] = int(native_core.ladder_stats[0])
         d["ladder_total"] = int(native_core.ladder_stats[1])
+    d["pool_task_s"] = pool_task_seconds()
     return d
+
+
+# ------------------------------------------------------------- the wave pool
+# One pool of native threads a process (csrc/wave_pool.cpp), made on the
+# first batch that reaches it, advances the paused GroupRuns of a wave
+# together: each wave's first advances (launch(), from the main thread
+# where the incubator launches the wave early) and each flush's resumes
+# after a solve() (_resume()).  A task is the serial path's own call of the
+# native core on one run, and runs touch only their own state, so the bytes
+# and every dispatch are the serial path's.
+
+_POOL_SRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "wave_pool.cpp")
+_POOL_FLAGS = ("-std=c++14", "-O2", "-pthread", "-shared", "-fPIC")
+# the native core's entry points, in wave_bind's order
+_POOL_CORE = ("core_group_start", "core_group_set_ladder",
+              "core_group_advance", "core_greedy_consume_fused",
+              "core_greedy_step", "core_ladder_consume", "core_support_step",
+              "core_bridge_step")
+_POOL = None                # (the core library bound, the pool's library)
+_POOL_LOCK = threading.Lock()
+
+
+def add_stats(**kw):
+    with _STATS_LOCK:
+        for k, v in kw.items():
+            stats[k] += v
+
+
+def pool_width(cfg):
+    """The wave pool's threads for this run: -t and the host's cores, less
+    one core for the main and replay threads, as the host path's async pool
+    is sized (meta/incubator.py _region_start); 0 at -t 1."""
+    return max(0, min(cfg.max_threads, os.cpu_count() or 1) - 1)
+
+
+def _build_pool(build_dir=None):
+    """Path of the pool's library, built with g++ from csrc/wave_pool.cpp
+    into build/aletsch_tpu_torch/ (io/bam_native.py's build directory),
+    named by a hash of the source and the flags.  The first process to need
+    it builds it under an exclusive lock and renames it into place, so a
+    file at that path is always complete.  Raises when g++ fails."""
+    import fcntl
+    import hashlib
+    import subprocess
+    import tempfile
+    from ..io.bam_native import _BUILD_DIR
+    build_dir = _BUILD_DIR if build_dir is None else build_dir
+    with open(_POOL_SRC, "rb") as fh:
+        h = hashlib.sha256(" ".join(_POOL_FLAGS).encode() + b"\0"
+                           + fh.read())
+    out = os.path.join(build_dir, "libwave_pool_%s.so" % h.hexdigest()[:16])
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir, exist_ok=True)
+    with open(out + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)    # released when the file closes
+        if not os.path.exists(out):
+            with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+                lib = os.path.join(tmp, "libwave_pool.so")
+                subprocess.run(["g++", *_POOL_FLAGS, "-o", lib, _POOL_SRC],
+                               check=True, capture_output=True)
+                os.replace(lib, out)
+    return out
+
+
+def _pool_lib():
+    """The pool's library, its entry points declared and bound to the
+    native core's (again where the core's library was loaded anew)."""
+    global _POOL
+    core = native_core._load_lib()
+    native_core._bind(core)
+    with _POOL_LOCK:
+        if _POOL is not None and _POOL[0] is core:
+            return _POOL[1]
+        lib = _POOL[1] if _POOL is not None else ctypes.CDLL(_build_pool())
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+        for name, args in (
+                ("wave_consume_fused",
+                 [i32, vp, vp, i64, vp, i64, vp, i32, i32, vp, vp, i32]),
+                ("wave_greedy_step", [i32, vp, vp, i64, vp, i32]),
+                ("wave_ladder_consume",
+                 [i32, vp, vp, i64, vp, i64, vp, vp, i32, vp, vp, i32]),
+                ("wave_support_step", [i32, vp, vp, i64, vp, i32]),
+                ("wave_bridge_feed",
+                 [i32, vp, vp, vp, vp, vp] + [i32] * 4 + [vp, i32]),
+                ("wave_join", [vp])):
+            fn = getattr(lib, name)
+            fn.restype = i32
+            fn.argtypes = args
+        lib.wave_start_async.restype = vp
+        lib.wave_start_async.argtypes = \
+            core.core_resolve_groups_mt.argtypes + [i32] * 6 + [vp, vp]
+        lib.wave_task_ns.restype = i64
+        lib.wave_task_ns.argtypes = []
+        lib.wave_bind.argtypes = [vp]
+        fns = (vp * len(_POOL_CORE))(*(
+            ctypes.cast(getattr(core, name), vp).value
+            for name in _POOL_CORE))
+        lib.wave_bind(fns)
+        _POOL = (core, lib)
+        return lib
+
+
+def pool_task_seconds():
+    """Seconds the wave pool's tasks took, on every thread, since the
+    process began (0 before its first batch)."""
+    return _POOL[1].wave_task_ns() / 1e9 if _POOL is not None else 0.0
+
+
+def _free(runs):
+    """Free every run of [(asmb, gv, handle-or-None)] not yet finished."""
+    lib = native_core._load_lib()
+    for _, _, gh in runs:
+        if gh is not None and gh.h is not None:
+            lib.core_group_free(gh.h)
+            gh.h = None
+            gh.keep = None
+
+
+class Started:
+    """A wave's runs as launch() started them: `runs` as assemble_groups
+    holds them once join() returns, the stage flags they were made with,
+    and, while the pool makes and advances them, its job."""
+
+    __slots__ = ("runs", "flags", "lib", "job", "elig", "hs", "kinds",
+                 "keep")
+
+    def __init__(self, runs, flags, lib):
+        self.runs = runs
+        self.flags = flags
+        self.lib = lib
+        self.job = self.elig = self.hs = self.kinds = self.keep = None
+
+    def _join(self):
+        """Wait for the pool's job (once), and hand each run made to its
+        group's handle; whether every task ran."""
+        job, self.job = self.job, None
+        ok = self.lib.wave_join(job) == 0
+        _, keep = self.keep
+        for g, h, kind in zip(self.elig, self.hs.tolist(),
+                               self.kinds.tolist()):
+            if h:
+                asmb, gv, _ = self.runs[g]
+                self.runs[g] = (asmb, gv, native_core.GroupHandle(
+                    h, asmb, gv, keep, kind))
+        self.keep = None
+        return ok
+
+    def join(self):
+        """The runs, each advanced to its first pause."""
+        if self.job is not None and not self._join():
+            raise RuntimeError("a native group run failed on the wave pool")
+        return self.runs
+
+    def discard(self):
+        """Free the runs of a wave that will not run (a failure), once the
+        pool is done with them."""
+        if self.job is not None:
+            self._join()
+        _free(self.runs)
+
+
+def launch(asms, gvs, cfg):
+    """Start a device wave: marshal its eligible groups in one batch (the
+    host path's marshal, native_core._marshal_batch) and hand them to the
+    wave pool, which makes each group's run with the stage flags the wave
+    will use and advances it to its first pause, while this returns.  A
+    batch of one, or any batch at -t 1, runs in Started.join() on the
+    joining thread.  Returns the Started record for assemble_groups."""
+    width = pool_width(cfg)
+    lib = _pool_lib()
+    n = len(asms)
+    flags = (bridge_enabled(cfg, n), support_enabled(cfg, n),
+             ladder_enabled(cfg, n))
+    st = Started([(asmb, gv, None) for asmb, gv in zip(asms, gvs)], flags,
+                 lib)
+    elig = [g for g, (asmb, gv) in enumerate(zip(asms, gvs))
+            if native_core.eligible(asmb, gv)]
+    if not elig:
+        return st
+    st.elig = elig
+    # the arrays the pool's tasks read, and the payloads the runs point into
+    st.keep = native_core._marshal_batch(
+        [asms[g] for g in elig], [gvs[g] for g in elig], True, width)
+    st.hs = np.zeros(len(elig), dtype=np.uintp)
+    st.kinds = np.zeros(len(elig), dtype=np.int32)
+    st.job = lib.wave_start_async(
+        *st.keep[0], native_core.CFG_NI, native_core.CFG_ND,
+        int(getattr(cfg, "device_min_vertices", 16)),
+        *(int(f) for f in flags), st.hs.ctypes.data, st.kinds.ctypes.data)
+    if len(elig) > 1 and width > 0:
+        add_stats(pool_calls=1, pool_handles=len(elig))
+    else:
+        add_stats(inline_advances=1)
+    return st
+
+
+def _resume(hs, width, call):
+    """Resume one flush's runs after a solve(): each run's consume feeds
+    its row and advances it to its next pause, through
+    call(lib, run addresses, kinds address), a wave_* batch
+    (csrc/wave_pool.cpp) whose tasks are the serial path's native calls.
+    A batch of one, or every batch where the pool has no thread (-t 1),
+    runs on this thread without a handoff; a larger one on the wave pool,
+    this thread running tasks too.  Returns the pause kinds in the handles'
+    order."""
+    n = len(hs)
+    if n == 0:
+        return []
+    kinds = np.zeros(n, dtype=np.int32)
+    addrs = np.array([gh.h for gh in hs], dtype=np.uintp)
+    if call(_pool_lib(), addrs.ctypes.data, kinds.ctypes.data) != 0:
+        raise RuntimeError("a native group run failed on the wave pool")
+    if n > 1 and width > 0:
+        add_stats(pool_calls=1, pool_handles=n)
+    else:
+        add_stats(inline_advances=1)
+    out = kinds.tolist()
+    for gh, k in zip(hs, out):
+        gh.pause_kind = k
+    return out
+
+
+def _rows(a, dtype, n):
+    """The first n rows of a solver's output as one C-contiguous array,
+    and its row stride in elements."""
+    a = np.ascontiguousarray(a[:n], dtype=dtype)
+    return a, a.strides[0] // a.itemsize
+
+
+def _consume_fused(hs, paths, ws, npaths, maxv, trust, width):
+    def call(lib, hp, kp):
+        n = len(hs)
+        w, ws_stride = _rows(ws, np.float64, n)
+        p = np.ascontiguousarray(paths[:n]).view(np.uint8)  # bool rows
+        c = np.ascontiguousarray(npaths[:n], dtype=np.int32)
+        st = np.zeros((n, 2), dtype=np.int64)
+        rc = lib.wave_consume_fused(
+            n, hp, w.ctypes.data, ws_stride, p.ctypes.data, p.strides[0],
+            c.ctypes.data, maxv, 0 if trust else 1, st.ctypes.data, kp,
+            width)
+        native_core.fused_stats += st.sum(axis=0)
+        return rc
+    return _resume(hs, width, call)
+
+
+def _greedy_step(hs, tables, width):
+    def call(lib, hp, kp):
+        t, stride = _rows(tables, np.float32, len(hs))
+        return lib.wave_greedy_step(len(hs), hp, t.ctypes.data, stride, kp,
+                                    width)
+    return _resume(hs, width, call)
+
+
+def _consume_ladder(hs, larm, ltgt, ndec, status, trust, width):
+    def call(lib, hp, kp):
+        n = len(hs)
+        arm, arm_stride = _rows(larm, np.int32, n)
+        tgt, tgt_stride = _rows(ltgt, np.int32, n)
+        nd = np.ascontiguousarray(ndec[:n], dtype=np.int32)
+        ss = np.ascontiguousarray(status[:n], dtype=np.int32)
+        st = np.zeros((n, 2), dtype=np.int64)
+        rc = lib.wave_ladder_consume(
+            n, hp, arm.ctypes.data, arm_stride, tgt.ctypes.data, tgt_stride,
+            nd.ctypes.data, ss.ctypes.data, 0 if trust else 1,
+            st.ctypes.data, kp, width)
+        native_core.ladder_stats += st.sum(axis=0)
+        return rc
+    return _resume(hs, width, call)
+
+
+def _support_step(hs, sums, width):
+    def call(lib, hp, kp):
+        s, stride = _rows(sums, np.float32, len(hs))
+        return lib.wave_support_step(len(hs), hp, s.ctypes.data, stride,
+                                     kp, width)
+    return _resume(hs, width, call)
+
+
+def _feed_bridges(feeds, outs, slots, width):
+    """Feed each run of feeds, [(handle, plan)], every queued instance in
+    queue order: plan holds the instances' slots, slots[slot] = (dispatch,
+    row) and outs[dispatch] = (ostk, par, pix), int32 C-contiguous."""
+    def call(lib, hp, kp):
+        base = [tuple((a.ctypes.data, a.strides[0]) for a in out)
+                for out in outs]
+        off = [0]
+        ptrs = ([], [], [])
+        for _, plan in feeds:
+            for sl in plan:
+                d, i = slots[sl]
+                for col, (addr, stride) in zip(ptrs, base[d]):
+                    col.append(addr + i * stride)
+            off.append(len(ptrs[0]))
+        off = np.array(off, dtype=np.int64)
+        po, pp, px = (np.array(c, dtype=np.uintp) for c in ptrs)
+        ostk, par, _ = outs[0]
+        return lib.wave_bridge_feed(
+            len(feeds), hp, off.ctypes.data, po.ctypes.data, pp.ctypes.data,
+            px.ctypes.data, par.shape[1], ostk.shape[1], K, S, kp, width)
+    return _resume([g for g, _ in feeds], width, call)
 
 
 def _no_span(name, region=None):
@@ -328,47 +644,60 @@ def _no_clock():
     return 0.0
 
 
-def assemble_groups(asms, gvs, cfg, tracer=None):
+def assemble_groups(asms, gvs, cfg, tracer=None, started=None):
     """Device-batched equivalent of the serial `asmb.resolve(gv)` loop.
+
+    started: the wave's runs as launch() started them (their stage flags
+    with them), where the incubator launched the wave from the main thread;
+    without it the wave launches them here.  Each flush's resumes after a
+    solve() go to the wave pool together (_resume); their pause kinds join
+    the next round in the serial order, so every dispatch holds the rows it
+    held serially.  A failure frees every run not yet finished, after the
+    pool is done with them.
 
     With the incubator's tracer it times the wave's parts as spans
     (utils/tracing.py), inside the caller's span `wave` around this call:
-    `wave.start` (the runs' starts), each `wave.round` of the pause loop,
-    `wave.consume.<stage>` (the native consumes after a stage's solve(),
-    which resume the runs to their next pause) and `wave.finish`; and as
-    clocks only, summed a wave, `wave.export` (every export into staging
-    rows) and `wave.host_dp` (every native host DP of a refused instance).
-    Their seconds are disjoint: the bridge's consume span leaves out the
-    host DPs fed in among its consumes.  Without a tracer it times
-    nothing."""
+    `wave.start` (the runs' starts, or the join of a wave launched early),
+    each `wave.round` of the pause loop, `wave.consume.<stage>` (the native
+    consumes after a stage's solve(), which resume the runs to their next
+    pause) and `wave.finish`; and as clocks only, summed a wave,
+    `wave.export` (every export into staging rows) and `wave.host_dp`
+    (every native host DP of a refused instance).  Their seconds are
+    disjoint: the bridge's consume span leaves out the host DPs fed in
+    among its consumes.  Without a tracer it times nothing."""
+    span = _no_span if tracer is None else tracer.span
+    runs = []               # (asmb, gv, handle-or-None) in group order
+    try:
+        with span("wave.start"):
+            if started is None:
+                started = launch(asms, gvs, cfg)
+            runs.extend(started.join())
+        _assemble(cfg, tracer, started.flags, runs)
+    except BaseException:
+        if started is not None:
+            started.discard()
+        _free(runs)
+        raise
+
+
+def _assemble(cfg, tracer, flags, runs):
     step = step_mode()
     if step:
         dev, export = _get_device(), native_core.greedy_export
     else:
         dev, export = _get_fused_device(), native_core.greedy_export_fused
-    bridge_dev = bridge_enabled(cfg, len(asms))
+    bridge_dev, support_dev, ladder_dev = flags
     bdev = _get_bridge_device() if bridge_dev else None
-    support_dev = support_enabled(cfg, len(asms))
     sdev = _get_support_device() if support_dev else None
-    ladder_dev = ladder_enabled(cfg, len(asms))
     ldev = _get_ladder_device() if ladder_dev else None
-    minv = int(getattr(cfg, "device_min_vertices", 16))
+    width = pool_width(cfg)
     greedy = "wave.consume.step" if step else "wave.consume.drain"
     if tracer is None:
         span, clock = _no_span, _no_clock
     else:
         span, clock = tracer.span, time.perf_counter
     t_exp = t_dp = 0.0      # seconds in exports and in host DPs
-    runs = []               # (asmb, gv, handle-or-None) in group order
-    active = []
-    with span("wave.start"):
-        for asmb, gv in zip(asms, gvs):
-            gh = native_core.start_group_device(asmb, gv, True, minv,
-                                                bridge_dev, support_dev,
-                                                ladder_dev)
-            runs.append((asmb, gv, gh))
-            if gh is not None and gh.paused:
-                active.append(gh)
+    active = [gh for _, _, gh in runs if gh is not None and gh.paused]
     stats["waves"] += 1
 
     while active:
@@ -377,17 +706,17 @@ def assemble_groups(asms, gvs, cfg, tracer=None):
         s_exp = []          # support-paused handles with exported rows
         l_exp = []          # ladder-paused handles with exported rows
 
+        def resumed(hs, kinds):
+            nxt.extend(g for g, k in zip(hs, kinds) if k)
+
         def flush_ladder():
             if not l_exp:
                 return
             larm, ltgt, ndec, lstatus = ldev.solve(len(l_exp))
             with span("wave.consume.ladder"):
-                for i, g in enumerate(l_exp):
-                    stats["device_ladder_graphs"] += 1
-                    if native_core.ladder_consume(
-                            g, larm[i], ltgt[i], int(ndec[i]),
-                            int(lstatus[i]), _LADDER_TRUST):
-                        nxt.append(g)
+                stats["device_ladder_graphs"] += len(l_exp)
+                resumed(l_exp, _consume_ladder(l_exp, larm, ltgt, ndec,
+                                               lstatus, _LADDER_TRUST, width))
             del l_exp[:]
 
         def flush_greedy():
@@ -396,56 +725,66 @@ def assemble_groups(asms, gvs, cfg, tracer=None):
             if step:
                 tables = dev.solve(len(g_exp))
                 with span(greedy):
-                    for i, g in enumerate(g_exp):
-                        stats["device_steps"] += 1
-                        if native_core.greedy_step(g, tables[i]):
-                            nxt.append(g)
+                    stats["device_steps"] += len(g_exp)
+                    resumed(g_exp, _greedy_step(g_exp, tables, width))
             else:
                 paths, ws, npaths = dev.solve(len(g_exp))
                 with span(greedy):
-                    for i, g in enumerate(g_exp):
-                        if _FUSED_TRUST:
-                            stats["device_steps"] += int(npaths[i])
-                        if native_core.greedy_consume_fused(
-                                g, ws[i], paths[i], int(npaths[i]),
-                                dev.maxv, _FUSED_TRUST):
-                            nxt.append(g)
+                    if _FUSED_TRUST:
+                        stats["device_steps"] += int(
+                            np.sum(npaths[:len(g_exp)]))
+                    resumed(g_exp, _consume_fused(g_exp, paths, ws, npaths,
+                                                  dev.maxv, _FUSED_TRUST,
+                                                  width))
             del g_exp[:]
 
-        b_results = []      # per exported instance: (ostk, par, pix)
+        b_outs = []         # each bridge dispatch's (ostk, par, pix)
+        b_results = []      # per exported instance: (dispatch, row)
         b_cur = []          # result slots filled in the current dispatch
         b_feed = []         # (handle, plan); plan entry = slot id or -1
 
         def flush_bridge_rows():
             if not b_cur:
                 return
-            ostk, par, pix = bdev.solve(len(b_cur))
+            b_outs.append(tuple(np.ascontiguousarray(a, dtype=np.int32)
+                                for a in bdev.solve(len(b_cur))))
             for i, sl in enumerate(b_cur):
-                b_results[sl] = (ostk[i], par[i], pix[i])
+                b_results[sl] = (len(b_outs) - 1, i)
             del b_cur[:]
 
         def feed_bridges():
             # feed every queued instance back in flattened queue order
-            # (the native consume order; see core.cpp bridge_export_at)
+            # (the native consume order; see core.cpp bridge_export_at):
+            # the runs whose instances all have device rows together, the
+            # others here with the host DP of each refused instance
             nonlocal t_dp
             flush_bridge_rows()
             if not b_feed:
                 return
             dp = 0.0
             with span("wave.consume.bridge"):
-                for g, plan in b_feed:
-                    kind = g.pause_kind
-                    for sl in plan:
-                        if sl >= 0:
-                            ostk, par, pix = b_results[sl]
-                            stats["device_bridge_insts"] += 1
-                            kind = native_core.bridge_step(g, ostk, par,
-                                                           pix, K, S)
-                        else:
-                            stats["host_bridge_insts"] += 1
-                            t = clock()
-                            kind = native_core.bridge_solve_host(g)
-                            dp += clock() - t
+                whole = [k for k, (_, plan) in enumerate(b_feed)
+                         if plan and min(plan) >= 0]
+                feeds = [b_feed[k] for k in whole]
+                stats["device_bridge_insts"] += sum(len(p) for _, p in feeds)
+                kinds = dict(zip(whole, _feed_bridges(feeds, b_outs,
+                                                      b_results, width)))
+                for k, (g, plan) in enumerate(b_feed):
+                    kind = kinds.get(k)
+                    if kind is None:
+                        kind = g.pause_kind
+                        for sl in plan:
+                            if sl >= 0:
+                                d, i = b_results[sl]
+                                ostk, par, pix = b_outs[d]
+                                stats["device_bridge_insts"] += 1
+                                kind = native_core.bridge_step(
+                                    g, ostk[i], par[i], pix[i], K, S)
+                            else:
+                                stats["host_bridge_insts"] += 1
+                                t = clock()
+                                kind = native_core.bridge_solve_host(g)
+                                dp += clock() - t
                     if kind:
                         nxt.append(g)
             if tracer is not None:
@@ -453,16 +792,15 @@ def assemble_groups(asms, gvs, cfg, tracer=None):
             t_dp += dp
             del b_feed[:]
             del b_results[:]
+            del b_outs[:]
 
         def flush_support():
             if not s_exp:
                 return
             sums = sdev.solve(len(s_exp))
             with span("wave.consume.support"):
-                for i, g in enumerate(s_exp):
-                    stats["device_support_groups"] += 1
-                    if native_core.support_step(g, sums[i]):
-                        nxt.append(g)
+                stats["device_support_groups"] += len(s_exp)
+                resumed(s_exp, _support_step(s_exp, sums, width))
             del s_exp[:]
 
         with span("wave.round"):

@@ -567,8 +567,11 @@ class Incubator:
                     if item is None:
                         return
                     kind, payload = item
-                    if replay_err:
-                        continue        # drain after a failure
+                    if replay_err:      # drain after a failure
+                        job = payload[0][-1] if kind == "region" else None
+                        if isinstance(job, device_wave.Started):
+                            job.discard()
+                        continue
                     if kind == "region":
                         _finish_one(payload)
                         ri += 1
@@ -618,14 +621,15 @@ class Incubator:
             worker.join()
         _check_err()
 
-    def _assemble_groups(self, asms, gvs):
+    def _assemble_groups(self, asms, gvs, started=None):
         """Assemble one strand's groups in order.
 
         Device path: when the wave is large enough, every group's greedy
         max-path DP runs wave-batched on the card (meta/device_wave.py) —
         byte-identical to the serial path (fuzz-enforced), with the batch
-        axis over groups.  A device failure propagates: there is no
-        fallback to the host branch below.
+        axis over groups; `started` holds the wave's runs where
+        _region_start launched them.  A device failure propagates: there
+        is no fallback to the host branch below.
 
         Host path is serial on purpose: pipelining native launches on the
         region thread pool was measured SLOWER here (13.6s -> 16-17s on
@@ -635,9 +639,11 @@ class Incubator:
         overlap wins.  launch_group_native / finish_group_native keep the
         split shape for many-core hosts."""
         cfg = self.params[DEFAULT]
-        if asms and device_wave.enabled(cfg, len(asms)):
+        if started is not None \
+                or (asms and device_wave.enabled(cfg, len(asms))):
             with self.tracer.span("wave", tile=True):
-                device_wave.assemble_groups(asms, gvs, cfg, self.tracer)
+                device_wave.assemble_groups(asms, gvs, cfg, self.tracer,
+                                            started)
             return
         if len(asms) > 1 and (os.cpu_count() or 1) > 1 \
                 and cfg.max_threads > 1:
@@ -726,9 +732,11 @@ class Incubator:
         and LAUNCH the wave's native assembly (async when eligible).
         Returns the pending-region record for _region_finish; with an
         async launch the native pool assembles this region while the
-        caller replays the previous one (GIL-free overlap).  Its callers
-        open the span region.start around it; region.scan_wait (blocked
-        on a scan) and region.cluster (the strand loop) lie inside."""
+        caller replays the previous one (GIL-free overlap); a device wave
+        is launched on the native wave pool (device_wave.launch).  Its
+        callers open the span region.start around it; region.scan_wait
+        (blocked on a scan), region.cluster (the strand loop) and
+        region.launch (the device wave's launch) lie inside."""
         cfg = self.params[DEFAULT]
         grps = {s: BundleGroup(chrm, s, rid, cfg, self.sindex)
                 for s in STRANDS}
@@ -800,9 +808,15 @@ class Incubator:
                     instance += 1
                     self.stats["groups"] += 1
         job = None
-        if all_asms and "_assemble_groups" not in self.__dict__ \
-                and not device_wave.enabled(cfg, len(all_asms)) \
-                and len(all_asms) > 1 and (os.cpu_count() or 1) > 1 \
+        own = all_asms and "_assemble_groups" not in self.__dict__
+        if own and device_wave.enabled(cfg, len(all_asms)):
+            # the device wave's runs made and started on the native wave
+            # pool while the replay thread works on the regions before this
+            if device_wave.pool_width(cfg) > 0:
+                with self.tracer.span("region.launch"):
+                    job = device_wave.launch(all_asms, all_gvs, cfg)
+                device_wave.add_stats(prestarted_groups=len(all_asms))
+        elif own and len(all_asms) > 1 and (os.cpu_count() or 1) > 1 \
                 and cfg.max_threads > 1:
             from .native_core import launch_groups_native_mt
             # leave one core for the Python thread the pool overlaps with
@@ -822,7 +836,9 @@ class Incubator:
         chrm, rid, grps, all_asms, all_gvs, job = pending
         tr = self.tracer
         with tr.region(_region_id(chrm, rid)):
-            if job is not None:
+            if isinstance(job, device_wave.Started):
+                self._assemble_groups(all_asms, all_gvs, job)
+            elif job is not None:
                 job.join()
             else:
                 self._assemble_groups(all_asms, all_gvs)

@@ -5,8 +5,9 @@ two threads lands in Tracer.phase_times, the replay thread's spans cover
 region assembly, the wave's parts leave a non-negative Python share,
 the outputs do not change under a capture, no record_function range is
 entered without one, and the port's own capture (--jax_profile_dir)
-holds each span as a range on its thread with its region in the args.
-The solvers' sync clocks lie inside their solve() clocks.  The card's
+holds each span as a range on its thread with its region in the args;
+the device wave's launch lies inside the region's start.  The solvers'
+sync clocks lie inside their solve() clocks.  The card's
 check is the cuda-marked test here."""
 
 import glob
@@ -31,7 +32,7 @@ FORCED = ["--device_greedy", "on", "--device_bridge", "on",
 STAGES = ("drain", "bridge", "support", "ladder")
 # the main thread's spans and the replay thread's (clock-only ones last)
 MAIN = ("region.start", "region.scan_wait", "region.cluster",
-        "region.backpressure")
+        "region.launch", "region.backpressure")
 REPLAY = ("replay.idle", "wave", "wave.start", "wave.round",
           "wave.finish", "replay.fold", "wave.export", "wave.host_dp")
 # a stage's solve() clock, its sync clock and its dispatch counter
@@ -142,6 +143,7 @@ def test_resolve_leaves_the_span_in_phase_times(plain, name):
     assert tracer.phase_times[name] >= 0.0
     want = {"region.scan_wait": "region.start",
             "region.cluster": "region.start",
+            "region.launch": "region.start",
             "wave.start": "wave", "wave.round": "wave",
             "wave.finish": "wave", "wave.export": "wave",
             "wave.host_dp": "wave"}
@@ -149,6 +151,24 @@ def test_resolve_leaves_the_span_in_phase_times(plain, name):
         assert tracer.span_parent[name] == "wave.round"
     else:
         assert tracer.span_parent[name] == want.get(name, "assemble-regions")
+
+
+def test_the_launch_lies_inside_the_region_start(plain, captured):
+    """region.launch (the device wave's runs made and handed to the native
+    wave pool) lies inside region.start on the main thread: in the clocks,
+    and range by range in the capture."""
+    pt = plain[0].phase_times
+    assert 0.0 < pt["region.launch"] <= pt["region.start"]
+    spans = {}
+    for e in captured[1]:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X" \
+                and e["name"] in ("region.start", "region.launch"):
+            spans.setdefault(e["name"], []).append(
+                (e["tid"], float(e["ts"]), float(e["ts"]) + e["dur"]))
+    assert spans["region.launch"]
+    for tid, t0, t1 in spans["region.launch"]:
+        assert any(tid == t and s0 <= t0 and t1 <= s1
+                   for t, s0, s1 in spans["region.start"])
 
 
 def test_the_replay_thread_covers_region_assembly(plain):
@@ -197,7 +217,7 @@ def _ranges(events):
 
 @pytest.mark.parametrize("name", ["wave.start", "wave.round",
                                   "wave.consume.*", "region.scan_wait",
-                                  "replay.idle"])
+                                  "region.launch", "replay.idle"])
 def test_the_capture_holds_the_span_with_its_region(captured, name):
     ranges = _ranges(captured[1])
     if name.endswith("*"):
