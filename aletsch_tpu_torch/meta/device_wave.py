@@ -83,6 +83,10 @@ stats = {
     "prestarted_groups": 0,
 }
 _STATS_LOCK = threading.Lock()  # the main thread counts launches
+# the stages whose refused graphs or instances a wave solves by the native
+# host DP, each with its clock wave.host_dp.<stage> (drain: the greedy
+# stage, fused or step)
+HOST_DP_STAGES = ("drain", "bridge", "support", "ladder")
 
 _DEVICE = None
 _FUSED = None
@@ -662,9 +666,11 @@ def assemble_groups(asms, gvs, cfg, tracer=None, started=None):
     consumes after a stage's solve(), which resume the runs to their next
     pause) and `wave.finish`; and as clocks only, summed a wave,
     `wave.export` (every export into staging rows) and `wave.host_dp`
-    (every native host DP of a refused instance).  Their seconds are
-    disjoint: the bridge's consume span leaves out the host DPs fed in
-    among its consumes.  Without a tracer it times nothing."""
+    (every native host DP of a refused instance), the latter split by
+    stage into `wave.host_dp.<stage>` (drain, bridge, support, ladder),
+    which sum to it.  Their seconds are disjoint: the bridge's consume
+    span leaves out the host DPs fed in among its consumes.  Without a
+    tracer it times nothing."""
     span = _no_span if tracer is None else tracer.span
     runs = []               # (asmb, gv, handle-or-None) in group order
     try:
@@ -696,7 +702,8 @@ def _assemble(cfg, tracer, flags, runs):
         span, clock = _no_span, _no_clock
     else:
         span, clock = tracer.span, time.perf_counter
-    t_exp = t_dp = 0.0      # seconds in exports and in host DPs
+    t_exp = 0.0             # seconds in exports
+    t_dp = dict.fromkeys(HOST_DP_STAGES, 0.0)   # in host DPs, by stage
     active = [gh for _, _, gh in runs if gh is not None and gh.paused]
     stats["waves"] += 1
 
@@ -757,7 +764,6 @@ def _assemble(cfg, tracer, flags, runs):
             # (the native consume order; see core.cpp bridge_export_at):
             # the runs whose instances all have device rows together, the
             # others here with the host DP of each refused instance
-            nonlocal t_dp
             flush_bridge_rows()
             if not b_feed:
                 return
@@ -789,7 +795,7 @@ def _assemble(cfg, tracer, flags, runs):
                         nxt.append(g)
             if tracer is not None:
                 tracer.add_time("wave.consume.bridge", -dp)
-            t_dp += dp
+            t_dp["bridge"] += dp
             del b_feed[:]
             del b_results[:]
             del b_outs[:]
@@ -816,7 +822,7 @@ def _assemble(cfg, tracer, flags, runs):
                         stats["host_ladder_graphs"] += 1
                         t = clock()
                         more = native_core.ladder_solve_host(gh)
-                        t_dp += clock() - t
+                        t_dp["ladder"] += clock() - t
                         if more:
                             nxt.append(gh)
                         continue
@@ -833,7 +839,7 @@ def _assemble(cfg, tracer, flags, runs):
                         stats["host_support_groups"] += 1
                         t = clock()
                         more = native_core.support_solve_host(gh)
-                        t_dp += clock() - t
+                        t_dp["support"] += clock() - t
                         if more:
                             nxt.append(gh)
                         continue
@@ -872,7 +878,7 @@ def _assemble(cfg, tracer, flags, runs):
                     stats["host_graphs"] += 1
                     t = clock()
                     more = native_core.greedy_solve_host(gh)
-                    t_dp += clock() - t
+                    t_dp["drain"] += clock() - t
                     if more:
                         nxt.append(gh)
                     continue
@@ -894,4 +900,7 @@ def _assemble(cfg, tracer, flags, runs):
                 native_core.finish_group_device(gh)
     if tracer is not None:
         tracer.add_time("wave.export", t_exp)
-        tracer.add_time("wave.host_dp", t_dp)
+        tracer.add_time("wave.host_dp", sum(t_dp.values()))
+        for stage, dp in t_dp.items():
+            tracer.add_time("wave.host_dp." + stage, dp,
+                            parent="wave.host_dp")

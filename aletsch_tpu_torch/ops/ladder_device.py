@@ -119,11 +119,15 @@ class DeviceLadder:
         # kernel's launch or the plain lockstep loop, the sync), s;
         # ladder_kernel_time: the kernel's device time (CUDA events around
         # each launch, read at the dispatch's sync), s; ladder_sync_time:
-        # the host blocked in the dispatch's sync, s
+        # the host blocked in the dispatch's sync, s; ladder_rows_shipped:
+        # the rows the dispatches ran, live and switched off (a card's
+        # power of two); ladder_paths, ladder_path_edges: the phasing paths
+        # (hlen > 0) in the live rows and their edges (the sum of hlen)
         self.stats = {"ladder_dispatches": 0, "ladder_graphs": 0,
                       "ladder_device_time": 0.0, "ladder_kernel_time": 0.0,
                       "ladder_sync_time": 0.0, "ladder_decisions": 0,
-                      "ladder_iterations": 0}
+                      "ladder_iterations": 0, "ladder_rows_shipped": 0,
+                      "ladder_paths": 0, "ladder_path_edges": 0}
 
     def row(self, i):
         """Writable slices for the native export, in the C ABI's order."""
@@ -161,6 +165,10 @@ class DeviceLadder:
         self.stats["ladder_dispatches"] += 1
         self.stats["ladder_graphs"] += nrows
         self.stats["ladder_decisions"] += int(ndec.sum())
+        hlen = self.hlen[:nrows]
+        self.stats["ladder_rows_shipped"] += rows
+        self.stats["ladder_paths"] += int(np.count_nonzero(hlen > 0))
+        self.stats["ladder_path_edges"] += int(hlen.sum())
         return larm, ltgt, ndec, status
 
     def _plan(self, dev, rows):

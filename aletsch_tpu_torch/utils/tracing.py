@@ -223,10 +223,14 @@ class Tracer:
         finally:
             stack.pop()
 
-    def add_time(self, name, seconds):
+    def add_time(self, name, seconds, parent=None):
         """Add seconds to a span that is a clock only (summed by its
-        caller, never a range), nested in the span open on this thread."""
-        self._nest(name, self._stack())
+        caller, never a range), nested in the span open on this thread, or
+        in `parent` (a clock it is a part of)."""
+        if parent is None:
+            self._nest(name, self._stack())
+        else:
+            self.span_parent.setdefault(name, parent)
         self.phase_times[name] = self.phase_times.get(name, 0.0) + seconds
 
     # --------------------------------------------------------------- counters
