@@ -30,6 +30,11 @@ each kind across its groups into dispatches on the port's device:
   ops/ladder_kernel.py), and the native consumer replays the decision
   logs (trust mode) or compares them with its own ladder (verify mode).
 
+The incubator's replay thread runs the waves of consecutive regions
+queued together, up to one staging batch of groups, as one wave
+(meta/incubator.py ReplayQueue), so a round ships one dispatch a stage
+for all of them.
+
 Graphs within a group stay strictly sequential (later graphs' cross-sample
 supports read earlier graphs' post-greedy state), so the batch axis is the
 group axis.  A wave engages when the greedy stage or any of the three
@@ -59,7 +64,8 @@ import numpy as np
 
 from ..device import ENV as DEVICE_ENV
 from ..ops import similarity as similarity_ops
-from ..ops.constants import BRIDGE_K as K, BRIDGE_S as S
+from ..ops.constants import (BRIDGE_B, BRIDGE_K as K, BRIDGE_S as S,
+                             DRAIN_B, LADDER_B, STEP_B, SUPPORT_B)
 from . import native_core
 
 stats = {
@@ -81,6 +87,11 @@ stats = {
     "pool_handles": 0,
     "inline_advances": 0,
     "prestarted_groups": 0,
+    # calls of assemble_groups that ran the device waves of two regions or
+    # more together (meta/incubator.py ReplayQueue.get), and the region
+    # waves in them
+    "merge_calls": 0,
+    "merged_waves": 0,
 }
 _STATS_LOCK = threading.Lock()  # the main thread counts launches
 # the stages whose refused graphs or instances a wave solves by the native
@@ -534,6 +545,20 @@ def launch(asms, gvs, cfg):
     return st
 
 
+# ------------------------------------------------------- merged region waves
+# The groups of one merged call: a staging batch of every stage's solver,
+# so that a round of a merged call ships one dispatch a stage.
+MERGE_GROUPS = min(DRAIN_B, STEP_B, BRIDGE_B, SUPPORT_B, LADDER_B)
+
+
+def merges(flags, groups, other_flags, other_groups):
+    """Whether a device wave of other_groups groups, started with
+    other_flags, joins a call of `groups` groups started with `flags`
+    (meta/incubator.py ReplayQueue.get): the same stage flags, and one
+    staging batch of groups at most."""
+    return other_flags == flags and groups + other_groups <= MERGE_GROUPS
+
+
 def _resume(hs, width, call):
     """Resume one flush's runs after a solve(): each run's consume feeds
     its row and advances it to its next pause, through
@@ -651,9 +676,15 @@ def _no_clock():
 def assemble_groups(asms, gvs, cfg, tracer=None, started=None):
     """Device-batched equivalent of the serial `asmb.resolve(gv)` loop.
 
-    started: the wave's runs as launch() started them (their stage flags
-    with them), where the incubator launched the wave from the main thread;
-    without it the wave launches them here.  Each flush's resumes after a
+    started: the Started records of one region's wave or more, as launch()
+    started them on the main thread with one stage flags; without them the
+    wave launches its runs here.  Several records run the device waves of
+    consecutive regions as one wave (the replay thread's merged call,
+    meta/incubator.py ReplayQueue.get): asms and gvs hold their groups
+    joined in region order, every round exports the runs of all of them
+    into the same staging rows, and wave.finish takes the runs in that
+    order, so each region's groups finish in their own order.
+    stats["waves"] counts each region's wave.  Each flush's resumes after a
     solve() go to the wave pool together (_resume); their pause kinds join
     the next round in the serial order, so every dispatch holds the rows it
     held serially.  A failure frees every run not yet finished, after the
@@ -672,21 +703,26 @@ def assemble_groups(asms, gvs, cfg, tracer=None, started=None):
     span leaves out the host DPs fed in among its consumes.  Without a
     tracer it times nothing."""
     span = _no_span if tracer is None else tracer.span
+    waves = list(started or ())
     runs = []               # (asmb, gv, handle-or-None) in group order
     try:
         with span("wave.start"):
-            if started is None:
-                started = launch(asms, gvs, cfg)
-            runs.extend(started.join())
-        _assemble(cfg, tracer, started.flags, runs)
+            if not waves:
+                waves.append(launch(asms, gvs, cfg))
+            for st in waves:
+                runs.extend(st.join())
+        if len(waves) > 1:
+            stats["merge_calls"] += 1
+            stats["merged_waves"] += len(waves)
+        _assemble(cfg, tracer, waves[0].flags, runs, len(waves))
     except BaseException:
-        if started is not None:
-            started.discard()
+        for st in waves:
+            st.discard()
         _free(runs)
         raise
 
 
-def _assemble(cfg, tracer, flags, runs):
+def _assemble(cfg, tracer, flags, runs, nwaves):
     step = step_mode()
     if step:
         dev, export = _get_device(), native_core.greedy_export
@@ -705,7 +741,7 @@ def _assemble(cfg, tracer, flags, runs):
     t_exp = 0.0             # seconds in exports
     t_dp = dict.fromkeys(HOST_DP_STAGES, 0.0)   # in host DPs, by stage
     active = [gh for _, _, gh in runs if gh is not None and gh.paused]
-    stats["waves"] += 1
+    stats["waves"] += nwaves
 
     while active:
         nxt = []

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import os
 import sys
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -129,6 +130,67 @@ def _limit_blas_threads():
 def _region_id(chrm, rid):
     """A region as the spans name it: "chrm:rid"."""
     return "%s:%d" % (chrm, rid)
+
+
+class ReplayQueue:
+    """The region pipeline's queue from the main thread to the replay
+    thread (Incubator._run_region_pipeline), bounded by the groups it
+    holds.  put() blocks while the queue holds `depth` items or more and,
+    together, two merged calls' worth of groups (device_wave.MERGE_GROUPS
+    each): one call ready while the last one runs.  An item that is not a
+    device wave (a checkpoint load, a host-path region, the closing None)
+    weighs a whole call.  get() takes the next item and, where it is a
+    device wave, the device waves queued right behind it that merge with
+    it (device_wave.merges); it waits for the first item only.  join()
+    and task_done() are queue.Queue's, task_done() for several items at
+    once."""
+
+    def __init__(self, depth):
+        self.depth = max(1, depth)
+        self._items = deque()       # (item, groups, flags or None)
+        self._groups = 0
+        self._unfinished = 0
+        self._cond = threading.Condition()
+
+    def put(self, item, groups=device_wave.MERGE_GROUPS, flags=None):
+        """Queue item; flags: a device wave's stage flags (Started.flags),
+        None for any other item."""
+        with self._cond:
+            while len(self._items) >= self.depth \
+                    and self._groups >= 2 * device_wave.MERGE_GROUPS:
+                self._cond.wait()
+            self._items.append((item, groups, flags))
+            self._groups += groups
+            self._unfinished += 1
+            self._cond.notify_all()
+
+    def get(self):
+        """[the next item, the device waves merged behind it...]."""
+        with self._cond:
+            while not self._items:
+                self._cond.wait()
+            item, n, flags = self._items.popleft()
+            out = [item]
+            while flags is not None and self._items:
+                _, m, f = self._items[0]
+                if not device_wave.merges(flags, n, f, m):
+                    break
+                out.append(self._items.popleft()[0])
+                n += m
+            self._groups -= n
+            self._cond.notify_all()
+            return out
+
+    def task_done(self, n=1):
+        with self._cond:
+            self._unfinished -= n
+            self._cond.notify_all()
+
+    def join(self):
+        """Wait until every item queued has been taken and is done."""
+        with self._cond:
+            while self._unfinished:
+                self._cond.wait()
 
 
 class Incubator:
@@ -539,11 +601,12 @@ class Incubator:
         # but it overlaps the GIL-free native scan/assembly the main
         # thread drives — the fold order (and therefore every byte) is
         # the submission order, identical to the serial loop.  The queue
-        # depth bounds retained wave memory; checkpoint loads ride the
-        # same queue so their folds stay in region order.
+        # bounds retained wave memory by groups (ReplayQueue: at least the
+        # depth's regions, else two merged calls' groups), and the worker
+        # runs the device waves queued together in one call; checkpoint
+        # loads ride the same queue so their folds stay in region order.
         depth = int(os.environ.get("ALETSCH_PIPE_DEPTH") or 2)
-        import queue as _queue
-        replay_q = _queue.Queue(maxsize=max(1, depth))
+        replay_q = ReplayQueue(depth)
         replay_err = []
 
         def _finish_one(item):
@@ -562,19 +625,25 @@ class Incubator:
             while True:
                 with tr.span("replay.idle", _region_id(*live[ri][:2])
                              if ri < len(live) else None, tile=True):
-                    item = replay_q.get()
+                    items = replay_q.get()
                 try:
-                    if item is None:
+                    if items[0] is None:
                         return
-                    kind, payload = item
                     if replay_err:      # drain after a failure
-                        job = payload[0][-1] if kind == "region" else None
-                        if isinstance(job, device_wave.Started):
-                            job.discard()
+                        for kind, payload in items:
+                            job = payload[0][-1] if kind == "region" \
+                                else None
+                            if isinstance(job, device_wave.Started):
+                                job.discard()
                         continue
+                    kind, payload = items[0]
                     if kind == "region":
-                        _finish_one(payload)
-                        ri += 1
+                        # device waves queued together run as one
+                        if isinstance(payload[0][-1], device_wave.Started):
+                            self._assemble_waves([p[0] for _, p in items])
+                        for _, payload in items:
+                            _finish_one(payload)
+                        ri += len(items)
                     else:               # ordered checkpoint load
                         ck, chrm, rid, done = payload
                         done.append(self._ckpt_load(ck, chrm, rid, tr))
@@ -582,7 +651,7 @@ class Incubator:
                 except BaseException as e:   # propagate to the main thread
                     replay_err.append(e)
                 finally:
-                    replay_q.task_done()
+                    replay_q.task_done(len(items))
 
         worker = threading.Thread(target=_replay_worker,
                                   args=(time.perf_counter(),),
@@ -613,8 +682,13 @@ class Incubator:
                     pr = self._region_start(chrm, rid, results)
                 nb = self.stats["bundles"] - b0
                 ng = self.stats["groups"] - g0
+                item = ("region", (pr, ck, chrm, rid, nb, ng))
+                job = pr[-1]
                 with tr.span("region.backpressure", _region_id(chrm, rid)):
-                    replay_q.put(("region", (pr, ck, chrm, rid, nb, ng)))
+                    if isinstance(job, device_wave.Started):
+                        replay_q.put(item, len(job.runs), job.flags)
+                    else:
+                        replay_q.put(item)
             replay_q.join()
         finally:
             replay_q.put(None)
@@ -627,9 +701,10 @@ class Incubator:
         Device path: when the wave is large enough, every group's greedy
         max-path DP runs wave-batched on the card (meta/device_wave.py) —
         byte-identical to the serial path (fuzz-enforced), with the batch
-        axis over groups; `started` holds the wave's runs where
-        _region_start launched them.  A device failure propagates: there
-        is no fallback to the host branch below.
+        axis over groups; `started` holds the Started records of the
+        regions' waves that _region_start launched, one region's or
+        several run as one (_assemble_waves).  A device failure
+        propagates: there is no fallback to the host branch below.
 
         Host path is serial on purpose: pipelining native launches on the
         region thread pool was measured SLOWER here (13.6s -> 16-17s on
@@ -827,21 +902,34 @@ class Incubator:
             job = launch_groups_native_mt(all_asms, all_gvs, True, nthreads)
         return (chrm, rid, grps, all_asms, all_gvs, job)
 
+    def _assemble_waves(self, pendings):
+        """The device waves of one region or more, consecutive and
+        started on the wave pool with the same stage flags, as one wave
+        (the replay thread's call, ReplayQueue.get): their groups joined in
+        region order, their Started records together.  The span wave is
+        one range for the call, in the first region's name; each region's
+        fold follows (_region_finish)."""
+        chrm, rid = pendings[0][:2]
+        with self.tracer.region(_region_id(chrm, rid)):
+            self._assemble_groups([a for p in pendings for a in p[3]],
+                                  [gv for p in pendings for gv in p[4]],
+                                  [p[5] for p in pendings])
+
     def _region_finish(self, pending):
         """Back half of process_region: join (or run) the wave's group
         assembly, then fold the region transcript sets into the global
-        per-(chrm, strand) sets.  Replay is in (strand, group) order —
-        bytes identical to the unsplit process_region.  Spans: wave
-        (_assemble_groups), then replay.fold."""
+        per-(chrm, strand) sets.  A device wave started on the wave pool
+        is assembled before this, by the replay thread (_assemble_waves).
+        Replay is in (strand, group) order — bytes identical to the
+        unsplit process_region.  Spans: wave (_assemble_groups), then
+        replay.fold."""
         chrm, rid, grps, all_asms, all_gvs, job = pending
         tr = self.tracer
         with tr.region(_region_id(chrm, rid)):
-            if isinstance(job, device_wave.Started):
-                self._assemble_groups(all_asms, all_gvs, job)
-            elif job is not None:
-                job.join()
-            else:
+            if job is None:
                 self._assemble_groups(all_asms, all_gvs)
+            elif not isinstance(job, device_wave.Started):
+                job.join()
             region_sets = {}
             with tr.span("replay.fold", tile=True):
                 for s in STRANDS:

@@ -44,3 +44,6 @@ BRIDGE_T = 16
 SUPPORT_B = 64
 SUPPORT_NS = 16
 SUPPORT_J = 64
+
+# decomposition ladder (ops/ladder_kernel.py): graphs per dispatch
+LADDER_B = 64

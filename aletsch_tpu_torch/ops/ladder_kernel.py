@@ -53,9 +53,10 @@ import numpy as np
 import torch
 
 from . import ladder_ref
+from .constants import LADDER_B
 from .ladder_ref import BROKEN, SMALLEST, TRIVIAL  # noqa: F401 (re-export)
 
-DEFAULT_B = 64
+DEFAULT_B = LADDER_B
 DEFAULT_V = 64
 DEFAULT_E = 256
 DEFAULT_H = 64

@@ -102,14 +102,18 @@ SEAMS = {
     "meta/bundle_group.py": (
         {"BundleGroup._use_device_similarity"}, set(), set()),
     # the device wave takes the tracer; spans of the region pipeline on
-    # its two threads (utils/tracing.py::Tracer.span)
+    # its two threads (utils/tracing.py::Tracer.span); the replay thread
+    # runs the device waves queued together as one (ReplayQueue)
     "meta/incubator.py": (
         {"Incubator._assemble_groups", "Incubator._run_region_pipeline",
          "Incubator._run_region_pipeline.get_result",
          "Incubator._run_region_pipeline._finish_one",
          "Incubator._run_region_pipeline._replay_worker",
          "Incubator.process_region", "Incubator._region_start",
-         "Incubator._region_finish"}, set(), {"_region_id"}),
+         "Incubator._region_finish"}, set(),
+        {"_region_id", "Incubator._assemble_waves", "ReplayQueue.__init__",
+         "ReplayQueue.put", "ReplayQueue.get", "ReplayQueue.task_done",
+         "ReplayQueue.join"}),
     "__main__.py": ({"main"}, set(), set()),
     # the port builds its own library, under a lock and renamed into place
     # (tests/test_torch_native_build.py), and loads it once a process
@@ -249,6 +253,7 @@ def test_bridge_and_support_constants_live_in_ops_constants():
     assert (c.BRIDGE_B, c.BRIDGE_V, c.BRIDGE_E, c.BRIDGE_T) == \
         (64, 64, 16, 16)
     assert (c.SUPPORT_B, c.SUPPORT_NS, c.SUPPORT_J) == (64, 16, 64)
+    assert c.LADDER_B == port_ladder.DEFAULT_B == ref_ladder.DEFAULT_B == 64
 
 
 def test_ladder_solver_shapes_match_jax():
